@@ -1,0 +1,603 @@
+"""The whole-trace kernel: every bounce level of a ray tile in one launch.
+
+``trace_whole`` launches csrc/trace_whole.cu, a CUDA kernel with one thread
+per ray. For each level the thread folds the closest hit over walls, boxes
+and sphere chunks (ties broken on the global index), regathers the winner's
+attributes, shades it with Blinn-Phong point and sun lights (or the sky on a
+miss), accumulates, and reflects. ``trace_whole_reference`` is its plain
+PyTorch version: the same arithmetic, op for op, vectorised over primitives.
+
+The scene reaches the kernel as one packed float32 table (``FusedTables``),
+copied into shared memory at block start. Its layout, column by column
+(each column holds one value per item of its group), is ``_LAYOUT`` below
+and is mirrored by ``make_layout`` in the CUDA source.
+
+A lane whose throughput is 0 at a level is dead there: the kernel skips it,
+and both versions write ``(MISS_T, -1)`` as its (t, index) and leave its
+ray, throughput and accumulator unchanged.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+
+import torch
+
+from raytracer_tpu_torch.core.types import Scene
+from raytracer_tpu_torch.core.v3 import V3
+from raytracer_tpu_torch.ops import _build
+from raytracer_tpu_torch.ops.trace import MISS_T, REFLECT_EPS, _wall_tables
+
+__all__ = [
+    "FUSED_MAX_CHUNKS",
+    "FUSED_MAX_DEPTH",
+    "FusedTables",
+    "resolve_unroll",
+    "resolve_gate_geom",
+    "fused_tables",
+    "check_fused_class",
+    "trace_whole_reference",
+    "trace_whole",
+]
+
+# The fused class: scenes of at most 4 sphere chunks (64 spheres) traced to
+# at most 10 bounces, the reference renderer's own maximum recursion depth.
+FUSED_MAX_CHUNKS = 4
+FUSED_MAX_DEPTH = 10
+_SMEM_LIMIT = 48 * 1024  # dynamic shared memory a block gets by default
+
+_AABB_PAD = 1e-3  # chunk-box inflation absorbing float32 rounding
+_GATE_PAD = 1e-2  # bounding-sphere inflation for the tube gate
+
+GATE_AABB, GATE_SPHERE = 0, 1
+
+# (count key, column names) per group, in table order.
+_LAYOUT = (
+    ("n_s", ("cx", "cy", "cz", "cr2", "srad")),
+    ("n_w", ("nx", "ny", "nz", "dpl", "rx", "ry", "rz", "ux", "uy", "uz",
+             "px", "py", "pz", "ln", "wd")),
+    ("n_b", ("bmnx", "bmny", "bmnz", "bmxx", "bmxy", "bmxz")),
+    ("n_prim", ("mcr", "mcg", "mcb", "mam", "mmt", "mdf", "msp", "mex")),
+    ("n_c", ("alx", "aly", "alz", "ahx", "ahy", "ahz",
+             "gx", "gy", "gz", "gg", "gr2")),
+    ("one", ("slab_lo_x", "slab_lo_y", "slab_lo_z",
+             "slab_hi_x", "slab_hi_y", "slab_hi_z")),
+    ("n_pt", ("lpx", "lpy", "lpz", "lcr", "lcg", "lcb")),
+    ("n_sun", ("sdx", "sdy", "sdz", "scr", "scg", "scb")),
+    ("sky", ("sky",)),  # horizon rgb, zenith rgb, ground rgb, exponent
+)
+
+
+def resolve_unroll(n_s: int) -> int:
+    """Spheres per chunk: a scene of at most 16 spheres is one chunk of
+    exactly its spheres; larger scenes use chunks of 16 (32 from 256 on)."""
+    if 0 < n_s <= 16:
+        return n_s
+    return 32 if n_s >= 256 else 16
+
+
+def resolve_gate_geom(n_s: int, unroll: int) -> int:
+    """Chunk-gate geometry: chunk boxes for multi-chunk scenes, the chunk's
+    bounding sphere for a single chunk (a lone sphere's bounding sphere is
+    the sphere itself, where its box is the looser shape)."""
+    n_chunks = -(-n_s // unroll) if n_s else 0
+    return GATE_AABB if n_chunks >= 2 else GATE_SPHERE
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedTables:
+    """A scene packed for the whole-trace kernel.
+
+    ``cols`` maps each ``_LAYOUT`` column name to its 1-D tensor; ``packed``
+    is their concatenation in layout order, which the kernel reads.
+    """
+
+    cols: dict
+    packed: torch.Tensor
+    counts: dict  # n_s, unroll, n_c, n_w, n_b, n_pt, n_sun, gate
+
+    @property
+    def smem_bytes(self) -> int:
+        return self.packed.numel() * 4
+
+
+def _packed_fold_tables(scene: Scene) -> dict:
+    """Fold columns: sphere centers, |c|^2 - r^2 and radii; the wall
+    tables; box corners. Unpadded: the kernel's loop bounds are exact."""
+    s = scene.spheres
+    c = s.center
+    cr2 = c[:, 0] ** 2 + c[:, 1] ** 2 + c[:, 2] ** 2 - s.radius * s.radius
+    w = _wall_tables(scene.walls)
+    b = scene.boxes
+    return {
+        "cx": c[:, 0], "cy": c[:, 1], "cz": c[:, 2], "cr2": cr2,
+        "srad": s.radius,
+        "nx": w["nx"], "ny": w["ny"], "nz": w["nz"], "dpl": w["dplane"],
+        "rx": w["rx"], "ry": w["ry"], "rz": w["rz"],
+        "ux": w["ux"], "uy": w["uy"], "uz": w["uz"],
+        "px": w["px"], "py": w["py"], "pz": w["pz"],
+        "ln": w["length"], "wd": w["width"],
+        "bmnx": b.minimum[:, 0], "bmny": b.minimum[:, 1], "bmnz": b.minimum[:, 2],
+        "bmxx": b.maximum[:, 0], "bmxy": b.maximum[:, 1], "bmxz": b.maximum[:, 2],
+    }
+
+
+def _packed_mat_tables(scene: Scene) -> dict:
+    """Material columns with one row per primitive at its global index:
+    spheres, then walls, then boxes."""
+    mats = [scene.spheres.material, scene.walls.material, scene.boxes.material]
+
+    def col(get):
+        return torch.cat([get(m) for m in mats])
+
+    return {
+        "mcr": col(lambda m: m.color[:, 0]), "mcg": col(lambda m: m.color[:, 1]),
+        "mcb": col(lambda m: m.color[:, 2]), "mam": col(lambda m: m.ambient),
+        "mmt": col(lambda m: m.metallic), "mdf": col(lambda m: m.diffuse),
+        "msp": col(lambda m: m.specular),
+        "mex": col(lambda m: m.specular_exponent),
+    }
+
+
+def _light_sky_tables(scene: Scene) -> dict:
+    """Point lights, sun lights (directions made unit here) and the ten sky
+    scalars."""
+    lights, sky = scene.lights, scene.sky
+    lp, lc, sc = lights.point_position, lights.point_color, lights.sun_color
+    sd = lights.sun_direction
+    if sd.shape[0]:
+        sd = sd * torch.rsqrt(torch.sum(sd * sd, dim=-1, keepdim=True))
+    out = {}
+    for names, a in (
+        (("lpx", "lpy", "lpz"), lp), (("lcr", "lcg", "lcb"), lc),
+        (("sdx", "sdy", "sdz"), sd), (("scr", "scg", "scb"), sc),
+    ):
+        out.update({n: a[:, k] for k, n in enumerate(names)})
+    out["sky"] = torch.cat([
+        sky.horizon_color, sky.zenith_color, sky.ground_color,
+        sky.gradient_exponent.reshape(1),
+    ])
+    return out
+
+
+def _chunk_culling_tables(scene: Scene, unroll: int) -> dict:
+    """Per-chunk gate tables and the sphere-set slab.
+
+    Chunk ``c`` holds spheres ``[c * unroll, (c + 1) * unroll)``. Each
+    chunk gets its box (inflated by ``_AABB_PAD``) and a bounding sphere:
+    the box midpoint as center, the largest member reach plus ``_GATE_PAD``
+    as radius. The slab is the box of all spheres. The gates only skip a
+    chunk that no hit on the ray's live segment can come from, so the fold
+    is the same with or without them.
+    """
+    s = scene.spheres
+    lo_all, hi_all = s.center - s.radius[:, None], s.center + s.radius[:, None]
+    cols = {n: [] for n in ("alx", "aly", "alz", "ahx", "ahy", "ahz",
+                            "gx", "gy", "gz", "gg", "gr2")}
+    for c0 in range(0, len(s), unroll):
+        sl = slice(c0, c0 + unroll)
+        lo = lo_all[sl].amin(dim=0) - _AABB_PAD
+        hi = hi_all[sl].amax(dim=0) + _AABB_PAD
+        g = 0.5 * (lo + hi)
+        reach = torch.sqrt(((s.center[sl] - g) ** 2).sum(dim=-1)) + s.radius[sl]
+        for k, ax in enumerate("xyz"):
+            cols["al" + ax].append(lo[k])
+            cols["ah" + ax].append(hi[k])
+            cols["g" + ax].append(g[k])
+        cols["gg"].append(g[0] * g[0] + g[1] * g[1] + g[2] * g[2])
+        cols["gr2"].append((reach.amax() + _GATE_PAD) ** 2)
+    out = {n: torch.stack(v) if v else lo_all.new_zeros((0,)) for n, v in cols.items()}
+    if len(s):
+        lo, hi = lo_all.amin(dim=0) - _AABB_PAD, hi_all.amax(dim=0) + _AABB_PAD
+    else:
+        lo = hi = lo_all.new_zeros((3,))
+    for k, ax in enumerate("xyz"):
+        out["slab_lo_" + ax] = lo[k:k + 1]
+        out["slab_hi_" + ax] = hi[k:k + 1]
+    return out
+
+
+def fused_tables(scene: Scene) -> FusedTables:
+    """Pack ``scene`` for the kernel (on the scene's device)."""
+    with torch.no_grad():
+        n_s = len(scene.spheres)
+        unroll = resolve_unroll(n_s)
+        cols = {
+            **_packed_fold_tables(scene),
+            **_packed_mat_tables(scene),
+            **_chunk_culling_tables(scene, unroll),
+            **_light_sky_tables(scene),
+        }
+        counts = {
+            "n_s": n_s, "unroll": unroll, "n_c": -(-n_s // unroll) if n_s else 0,
+            "n_w": len(scene.walls), "n_b": len(scene.boxes),
+            "n_pt": scene.lights.point_position.shape[0],
+            "n_sun": scene.lights.sun_color.shape[0],
+            "gate": resolve_gate_geom(n_s, unroll),
+        }
+        sizes = {**counts, "n_prim": scene.num_primitives, "one": 1, "sky": 10}
+        order = [name for _, names in _LAYOUT for name in names]
+        for key, names in _LAYOUT:
+            for name in names:
+                if cols[name].shape != (sizes[key],):
+                    raise ValueError(
+                        f"table column {name} has shape {tuple(cols[name].shape)}, "
+                        f"expected ({sizes[key]},)"
+                    )
+        packed = torch.cat([cols[n].to(torch.float32) for n in order]).contiguous()
+    return FusedTables(cols, packed, counts)
+
+
+def check_fused_class(scene: Scene, depth: int) -> None:
+    """Raise ``NotImplementedError`` for work the kernel does not cover."""
+    n_s = len(scene.spheres)
+    n_chunks = -(-n_s // resolve_unroll(n_s)) if n_s else 0
+    if n_chunks > FUSED_MAX_CHUNKS or not 0 <= depth <= FUSED_MAX_DEPTH:
+        raise NotImplementedError(
+            f"{n_s} spheres ({n_chunks} chunks) at depth {depth} is outside "
+            f"the whole-trace kernel's class (<= {FUSED_MAX_CHUNKS} chunks, "
+            f"0 <= depth <= {FUSED_MAX_DEPTH}); larger scenes need the "
+            "per-level kernels, not ported yet (ROADMAP queue 2, kernels 3-5)"
+        )
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch version
+# ---------------------------------------------------------------------------
+
+
+def _srecip(c: torch.Tensor) -> torch.Tensor:
+    """Sign-preserving safe reciprocal: ``1/c``, or +-1e30 where |c| <= 1e-12."""
+    ok = torch.abs(c) > 1e-12
+    return torch.where(
+        ok, 1.0 / torch.where(ok, c, 1.0), torch.where(c >= 0.0, 1e30, -1e30)
+    )
+
+
+def _lexmin(ts: torch.Tensor, base: int):
+    """(min t, lowest index among the minima) over a ``[n, ...]`` stack of
+    candidate t (``MISS_T`` where invalid), indices ``base + position``;
+    ``(MISS_T, -1)`` where nothing is valid."""
+    bt = ts.amin(dim=0)
+    n = ts.shape[0]
+    pos = torch.arange(n, dtype=torch.int32, device=ts.device).view(-1, *([1] * (ts.dim() - 1)))
+    bi = torch.where(ts == bt, pos, n).amin(dim=0) + base
+    return bt, torch.where(bt < MISS_T, bi, -1).to(torch.int32)
+
+
+def _fold(t: dict, counts: dict, o: V3, d: V3):
+    """(best t, best global index) of every ray; ``(MISS_T, -1)`` on a miss.
+
+    The kernel folds walls, then boxes with a strict ``<``, then sphere
+    chunks with ties going to the lower global index: the lexicographic
+    minimum of (t, index), which this computes over stacks of candidates.
+    Like the kernel, it folds a sphere chunk only where the chunk's gate
+    lets the lane through. For unit directions the gate never drops a hit
+    the fold would keep; a direction that left unit length after a grazing
+    bounce can meet a sphere outside the gate, and there the gate decides.
+    """
+    ox, oy, oz = o
+    dx, dy, dz = d
+    nd = dx.dim()
+    n_s, n_w, n_b = counts["n_s"], counts["n_w"], counts["n_b"]
+
+    def col(name, sl=slice(None)):
+        return t[name][sl].view(-1, *([1] * nd))
+
+    ivx, ivy, ivz = _srecip(dx), _srecip(dy), _srecip(dz)
+    cands = []
+    if n_w:
+        nx, ny, nz = col("nx"), col("ny"), col("nz")
+        denom = dx * nx + dy * ny + dz * nz
+        num = col("dpl") - (ox * nx + oy * ny + oz * nz)
+        ok = torch.abs(denom) > 1e-12
+        tt = num / torch.where(ok, denom, 1.0)
+        relx = ox + dx * tt - col("px")
+        rely = oy + dy * tt - col("py")
+        relz = oz + dz * tt - col("pz")
+        u = relx * col("rx") + rely * col("ry") + relz * col("rz")
+        v = relx * col("ux") + rely * col("uy") + relz * col("uz")
+        valid = (
+            ok & (tt > 0.0) & (tt < MISS_T)
+            & (u >= 0.0) & (u <= col("ln")) & (v >= 0.0) & (v <= col("wd"))
+        )
+        cands.append(torch.where(valid, tt, MISS_T))
+    if n_b:
+        t1x, t2x = (col("bmnx") - ox) * ivx, (col("bmxx") - ox) * ivx
+        t1y, t2y = (col("bmny") - oy) * ivy, (col("bmxy") - oy) * ivy
+        t1z, t2z = (col("bmnz") - oz) * ivz, (col("bmxz") - oz) * ivz
+        tn = torch.maximum(
+            torch.maximum(torch.minimum(t1x, t2x), torch.minimum(t1y, t2y)),
+            torch.minimum(t1z, t2z),
+        )
+        tf = torch.minimum(
+            torch.minimum(torch.maximum(t1x, t2x), torch.maximum(t1y, t2y)),
+            torch.maximum(t1z, t2z),
+        )
+        cands.append(torch.where((tn <= tf) & (tn > 0.0) & (tn < MISS_T), tn, MISS_T))
+    if cands:
+        bt, bi = _lexmin(torch.cat(cands), n_s)
+    else:
+        bt = torch.full_like(dx, MISS_T)
+        bi = torch.full(dx.shape, -1, dtype=torch.int32, device=dx.device)
+    if not n_s:
+        return bt, bi
+
+    oo = ox * ox + oy * oy + oz * oz
+    do = dx * ox + dy * oy + dz * oz
+    # The ray's live segment [t0, t_ex] inside the slab of all spheres.
+    a = [((t[f"slab_lo_{x}"] - oc) * iv, (t[f"slab_hi_{x}"] - oc) * iv)
+         for x, oc, iv in (("x", ox, ivx), ("y", oy, ivy), ("z", oz, ivz))]
+    t0 = torch.clamp_min(torch.maximum(torch.maximum(
+        torch.minimum(*a[0]), torch.minimum(*a[1])), torch.minimum(*a[2])), 0.0)
+    t_ex = torch.minimum(torch.minimum(
+        torch.maximum(*a[0]), torch.maximum(*a[1])), torch.maximum(*a[2]))
+    seg_ok = (t_ex >= t0) & (t_ex > 0.0)
+    unroll = counts["unroll"]
+    for c in range(counts["n_c"]):
+        t1 = torch.minimum(t_ex, bt)
+        if counts["gate"] == GATE_AABB:
+            b = [((t[f"al{x}"][c] - oc) * iv, (t[f"ah{x}"][c] - oc) * iv)
+                 for x, oc, iv in (("x", ox, ivx), ("y", oy, ivy), ("z", oz, ivz))]
+            tn = torch.maximum(torch.maximum(
+                torch.minimum(*b[0]), torch.minimum(*b[1])), torch.minimum(*b[2]))
+            tf = torch.minimum(torch.minimum(
+                torch.maximum(*b[0]), torch.maximum(*b[1])), torch.maximum(*b[2]))
+            reach = torch.maximum(tn, t0) <= torch.minimum(tf, t1)
+        else:
+            gx, gy, gz = t["gx"][c], t["gy"][c], t["gz"][c]
+            s_g = dx * gx + dy * gy + dz * gz
+            m_g = ox * gx + oy * gy + oz * gz
+            tc = torch.minimum(torch.maximum(s_g - do, t0), t1)
+            dist2 = oo - 2.0 * m_g + t["gg"][c] + tc * (2.0 * (do - s_g) + tc)
+            reach = (t1 >= t0) & (dist2 <= t["gr2"][c])
+        sl = slice(c * unroll, min((c + 1) * unroll, n_s))
+        cx, cy, cz = col("cx", sl), col("cy", sl), col("cz", sl)
+        s = dx * cx + dy * cy + dz * cz
+        m = ox * cx + oy * cy + oz * cz
+        b_half = do - s
+        c_full = oo - 2.0 * m + col("cr2", sl)
+        disc = b_half * b_half - c_full
+        tt = -b_half - torch.sqrt(disc)  # NaN on a miss: fails the compare
+        ct, ci = _lexmin(torch.where((tt > 0.0) & (tt < MISS_T), tt, MISS_T), sl.start)
+        win = seg_ok & reach & (ci >= 0) & ((ct < bt) | ((ct == bt) & (ci < bi)))
+        bt, bi = torch.where(win, ct, bt), torch.where(win, ci, bi)
+    return bt, bi
+
+
+def _level(t: dict, counts: dict, o: V3, d: V3, w, is_last: bool):
+    """One level at fixed rays: fold, regather, record, shade, reflect.
+
+    Returns ``(t_out, index, increment V3, w_next, o_next, d_next)`` for
+    every lane, alive or not; the caller masks the dead ones.
+    """
+    n_s, n_w = counts["n_s"], counts["n_w"]
+    ox, oy, oz = o
+    dx, dy, dz = d
+    bt, bi = _fold(t, counts, o, d)
+    hit = bt < MISS_T
+    gi = bi.clamp_min(0).long()
+
+    def take(col):
+        """The winner's entry of a per-primitive column (0 on a miss)."""
+        return torch.where(hit, col[gi], 0.0) if col.numel() else torch.zeros_like(bt)
+
+    # Winner geometry g0..g5: a sphere's center and radius, a wall's normal
+    # and corner, a box's min and max corners.
+    none = t["cx"].new_zeros(n_s)
+    g0, g1, g2, g3, g4, g5 = (
+        take(torch.cat([t[sn] if sn else none, t[wn], t[bn]]))
+        for sn, wn, bn in (
+            ("cx", "nx", "bmnx"), ("cy", "ny", "bmny"), ("cz", "nz", "bmnz"),
+            ("srad", "px", "bmxx"), (None, "py", "bmxy"), (None, "pz", "bmxz"),
+        )
+    )
+    wb, bb = n_s, n_s + n_w
+    is_s = hit & (bi < wb)
+    is_w = hit & (bi >= wb) & (bi < bb)
+    is_b = hit & (bi >= bb)
+
+    # Winner t, recomputed in the full form (strict det > 0, else the
+    # fold's t), then hit point and normal.
+    tt = bt
+    bq = 2.0 * (dx * (ox - g0) + dy * (oy - g1) + dz * (oz - g2))
+    cq = (ox - g0) * (ox - g0) + (oy - g1) * (oy - g1) + (oz - g2) * (oz - g2) - g3 * g3
+    det = bq * bq - 4.0 * cq
+    pos = det > 0.0
+    t_s = 0.5 * (-bq - torch.sqrt(torch.where(pos, det, 1.0)))
+    tt = torch.where(is_s & pos, t_s, tt)
+    denom = dx * g0 + dy * g1 + dz * g2
+    ok = torch.abs(denom) > 1e-12
+    t_w = ((g3 - ox) * g0 + (g4 - oy) * g1 + (g5 - oz) * g2) / torch.where(ok, denom, 1.0)
+    tt = torch.where(is_w & ok, t_w, tt)
+    ivx, ivy, ivz = _srecip(dx), _srecip(dy), _srecip(dz)
+    t_b = torch.maximum(
+        torch.maximum(
+            torch.minimum((g0 - ox) * ivx, (g3 - ox) * ivx),
+            torch.minimum((g1 - oy) * ivy, (g4 - oy) * ivy),
+        ),
+        torch.minimum((g2 - oz) * ivz, (g5 - oz) * ivz),
+    )
+    tt = torch.where(is_b, t_b, tt)
+    t_safe = torch.where(hit, tt, 1.0)
+    hpx, hpy, hpz = ox + dx * t_safe, oy + dy * t_safe, oz + dz * t_safe
+
+    inv_r = 1.0 / torch.clamp_min(g3, 1e-12)
+    hn = [(hpx - g0) * inv_r, (hpy - g1) * inv_r, (hpz - g2) * inv_r]
+    hn = [torch.where(is_w, gk, h) for h, gk in zip(hn, (g0, g1, g2))]
+    tx = (torch.where(dx >= 0, g0, g3) - ox) * ivx
+    ty = (torch.where(dy >= 0, g1, g4) - oy) * ivy
+    tz = (torch.where(dz >= 0, g2, g5) - oz) * ivz
+    bx = (tx >= ty) & (tx >= tz)
+    by = ~bx & (ty >= tz)
+    bz = ~bx & ~by
+    hn = [
+        torch.where(is_b, torch.where(bk, -torch.sign(dk), 0.0), h)
+        for h, bk, dk in zip(hn, (bx, by, bz), (dx, dy, dz))
+    ]
+    hnx = torch.where(hit, hn[0], 0.0)
+    hny = torch.where(hit, hn[1], 0.0)
+    hnz = torch.where(hit, hn[2], 1.0)
+
+    colr, colg, colb, amb, met, dif, spe, exq = (
+        take(t[name]) for name in ("mcr", "mcg", "mcb", "mam", "mmt", "mdf", "msp", "mex")
+    )
+
+    # Blinn-Phong shading.
+    vwx, vwy, vwz = -dx, -dy, -dz
+
+    def light_terms(lx, ly, lz):
+        diffuse = torch.clamp_min(lx * hnx + ly * hny + lz * hnz, 0.0)
+        hvx, hvy, hvz = vwx + lx, vwy + ly, vwz + lz
+        n2 = hvx * hvx + hvy * hvy + hvz * hvz
+        hsc = torch.rsqrt(torch.where(n2 > 1e-12, n2, 1.0))
+        base = torch.clamp_min((hvx * hnx + hvy * hny + hvz * hnz) * hsc, 0.0)
+        specular = torch.where(
+            base > 0.0, torch.exp(exq * torch.log(torch.where(base > 0.0, base, 1.0))), 0.0
+        )
+        return diffuse * dif + specular * spe
+
+    ir = torch.zeros_like(w)
+    ig = torch.zeros_like(w)
+    ib = torch.zeros_like(w)
+    for li in range(counts["n_pt"]):
+        ldx = t["lpx"][li] - hpx
+        ldy = t["lpy"][li] - hpy
+        ldz = t["lpz"][li] - hpz
+        n2 = ldx * ldx + ldy * ldy + ldz * ldz
+        inv = torch.rsqrt(torch.clamp_min(n2, 1e-12))
+        term = light_terms(ldx * inv, ldy * inv, ldz * inv)
+        ir = ir + t["lcr"][li] * term
+        ig = ig + t["lcg"][li] * term
+        ib = ib + t["lcb"][li] * term
+    for si in range(counts["n_sun"]):
+        term = light_terms(t["sdx"][si], t["sdy"][si], t["sdz"][si])
+        ir = ir + t["scr"][si] * term
+        ig = ig + t["scg"][si] * term
+        ib = ib + t["scb"][si] * term
+    local = V3(colr * (ir + amb), colg * (ig + amb), colb * (ib + amb))
+
+    # Sky: ground below the horizon, a power gradient above.
+    sky = t["sky"]
+    z = dz
+    grad = torch.where(
+        z > 0.0, torch.exp(sky[9] * torch.log(torch.where(z > 0.0, z, 1.0))), 0.0
+    )
+    sk = V3(*(
+        torch.where(z < 0.0, sky[6 + k], sky[k] + (sky[3 + k] - sky[k]) * grad)
+        for k in range(3)
+    ))
+
+    hc = local if is_last else local * (1.0 - met)
+    inc = V3.where(hit & (w > 0.0), hc, sk) * w
+    t_out = torch.where(hit, tt, bt)
+    w_next = w * torch.where(hit, met, 0.0)
+    hn = V3(hnx, hny, hnz)
+    o_next = V3.where(hit, V3(hpx, hpy, hpz) + hn * REFLECT_EPS, o)
+    dn2 = 2.0 * (dx * hnx + dy * hny + dz * hnz)
+    d_next = V3.where(hit, d - hn * dn2, d)
+    return t_out, bi, inc, w_next, o_next, d_next
+
+
+def trace_whole_reference(tables: FusedTables, o: V3, d: V3, w: torch.Tensor,
+                          depth: int):
+    """Plain PyTorch version of ``trace_whole``: the same outputs for the
+    same inputs, on any device, for any scene size and depth (it folds
+    every primitive, where the kernel gates whole chunks away; the gates
+    only skip chunks that cannot win, so the fold is the same)."""
+    t, counts = tables.cols, tables.counts
+    acc = V3(torch.zeros_like(w), torch.zeros_like(w), torch.zeros_like(w))
+    ts, idxs = [], []
+    with torch.no_grad():
+        for k in range(depth + 1):
+            alive = w > 0.0
+            t_k, i_k, inc, w_next, o_next, d_next = _level(
+                t, counts, o, d, w, is_last=k == depth
+            )
+            ts.append(torch.where(alive, t_k, MISS_T))
+            idxs.append(torch.where(alive, i_k, -1))
+            acc = acc + V3.where(alive, inc, V3(*(torch.zeros_like(w),) * 3))
+            w = torch.where(alive, w_next, w)
+            o, d = V3.where(alive, o_next, o), V3.where(alive, d_next, d)
+    return acc, torch.stack(ts), torch.stack(idxs)
+
+
+# ---------------------------------------------------------------------------
+# The kernel
+# ---------------------------------------------------------------------------
+
+
+def _check_planes(planes, shape, device):
+    for p in planes:
+        if p.device != device or p.dtype != torch.float32:
+            raise ValueError(
+                f"trace_whole takes float32 planes on {device}, got "
+                f"{p.dtype} on {p.device}"
+            )
+        if p.shape != shape or not p.is_contiguous():
+            raise ValueError(
+                f"trace_whole takes contiguous planes of shape {tuple(shape)}, "
+                f"got {tuple(p.shape)} (contiguous={p.is_contiguous()})"
+            )
+
+
+def trace_whole(tables: FusedTables, o: V3, d: V3, w: torch.Tensor, depth: int):
+    """Every bounce level of a ray tile: ``(rgb V3, t f32[depth+1, ...],
+    index i32[depth+1, ...])``.
+
+    Inputs: ray origins ``o``, unit directions ``d`` and throughput ``w``,
+    seven contiguous float32 planes of one shape on one device. On CPU
+    tensors this is ``trace_whole_reference``; on CUDA tensors it launches
+    the kernel on the current stream, or raises.
+    """
+    dev, shape = w.device, w.shape
+    _check_planes((*o, *d, w), shape, dev)
+    if dev.type == "cpu":
+        return trace_whole_reference(tables, o, d, w, depth)
+    if dev.type != "cuda":
+        raise ValueError(f"trace_whole runs on CPU or CUDA tensors, got {dev}")
+    if tables.packed.device != dev or not tables.packed.is_contiguous():
+        raise ValueError("the packed scene table must be contiguous on the rays' device")
+    if not 0 <= depth <= FUSED_MAX_DEPTH:
+        raise ValueError(f"depth {depth} is outside 0..{FUSED_MAX_DEPTH}")
+    if tables.counts["n_c"] > FUSED_MAX_CHUNKS or tables.smem_bytes > _SMEM_LIMIT:
+        raise ValueError(
+            f"scene tables ({tables.counts['n_c']} chunks, "
+            f"{tables.smem_bytes} bytes) exceed the kernel's class"
+        )
+    rgb = [torch.empty(shape, dtype=torch.float32, device=dev) for _ in range(3)]
+    t_out = torch.empty((depth + 1, *shape), dtype=torch.float32, device=dev)
+    i_out = torch.empty((depth + 1, *shape), dtype=torch.int32, device=dev)
+    n = w.numel()
+    if n:
+        lib = _build.load("trace_whole", _SIGNATURES)
+        c = tables.counts
+        err = lib.trace_whole_launch(
+            tables.packed.data_ptr(), tables.packed.numel(),
+            c["n_s"], c["unroll"], c["n_w"], c["n_b"], c["n_pt"], c["n_sun"],
+            c["gate"], depth,
+            *(p.data_ptr() for p in (*o, *d, w)),
+            *(p.data_ptr() for p in rgb), t_out.data_ptr(), i_out.data_ptr(),
+            n, torch.cuda.current_stream(dev).cuda_stream,
+        )
+        if err:
+            raise RuntimeError(
+                f"trace_whole launch failed: CUDA error {err} "
+                f"({lib.trace_whole_error_string(err).decode()})"
+            )
+        trace_whole.launches += 1
+    return V3(*rgb), t_out, i_out
+
+
+trace_whole.launches = 0
+
+# C signatures of csrc/trace_whole.cu's exported functions.
+_SIGNATURES = {
+    "trace_whole_launch": (
+        ctypes.c_int,
+        [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_int] * 8
+        + [ctypes.c_void_p] * 12 + [ctypes.c_longlong, ctypes.c_void_p],
+    ),
+    "trace_whole_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+}

@@ -1,0 +1,84 @@
+"""The public render pipeline: ray generation, the bounce loop, tone map.
+
+The compute lives in ops/trace.py in component-SoA image layout; this module
+handles the API boundary (``[H, W, 3]`` images, ``[P, 3]`` ray batches), row
+chunking for very large frames, and supersampling.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from raytracer_tpu_torch.core.types import Camera, Scene, resolve_device
+from raytracer_tpu_torch.core.v3 import V3
+from raytracer_tpu_torch.ops.tonemap import reinhard_tonemap
+from raytracer_tpu_torch.ops.trace import render_tile, trace_soa
+
+__all__ = ["trace_rays", "render"]
+
+# Pixels per row chunk: bounds the live [rows, W] planes of 4K+ frames.
+_CHUNK_PIXELS = 1 << 21
+
+
+def _row_chunks(width: int, height: int, row_chunk: int) -> int:
+    """Rows per chunk (the whole image when it is small enough)."""
+    if row_chunk:
+        return row_chunk
+    if width * height <= _CHUNK_PIXELS:
+        return height
+    return max(1, _CHUNK_PIXELS // width)
+
+
+def trace_rays(
+    scene: Scene,
+    origins: torch.Tensor,  # f32[P, 3]
+    directions: torch.Tensor,  # f32[P, 3] unit
+    *,
+    depth: int = 3,
+    device=None,
+) -> torch.Tensor:
+    """Radiance transported along each ray, ``[P, 3]`` (pre-tonemap)."""
+    dev = resolve_device(device)
+    scene = scene.to(dev)
+    o = V3.from_stacked(origins.to(dev, torch.float32)[None])
+    d = V3.from_stacked(directions.to(dev, torch.float32)[None])
+    return trace_soa(scene, o, d, depth=depth).stacked()[0]
+
+
+def render(
+    scene: Scene,
+    camera: Camera,
+    width: int,
+    height: int,
+    *,
+    depth: int = 3,
+    tonemap: bool = True,
+    row_chunk: int = 0,
+    supersample: int = 1,
+    device=None,
+) -> torch.Tensor:
+    """Render the scene to an ``[H, W, 3]`` float image in [0, 1).
+
+    Raygen, the bounce loop and the Reinhard tone map. ``row_chunk=0``
+    picks a row tiling that bounds memory on large frames. ``supersample=k``
+    traces k*k rays per pixel on a finer grid and box-filters the radiance
+    before the tone map. ``device=None`` renders on CUDA.
+    """
+    dev = resolve_device(device)
+    scene, camera = scene.to(dev), camera.to(dev)
+    ss = supersample
+    rw, rh = width * ss, height * ss
+    rows = _row_chunks(rw, rh, row_chunk * ss if row_chunk else 0)
+    rows -= rows % ss  # keep chunk boundaries on whole-pixel rows
+    rows = max(rows, ss)
+    tiles = [
+        render_tile(
+            scene, camera, rw, rh, row_offset=r0, rows=min(rows, rh - r0),
+            depth=depth,
+        ).stacked()
+        for r0 in range(0, rh, rows)
+    ]
+    img = tiles[0] if len(tiles) == 1 else torch.cat(tiles, dim=0)
+    if ss > 1:
+        img = img.reshape(height, ss, width, ss, 3).mean(dim=(1, 3))
+    return reinhard_tonemap(img) if tonemap else img
