@@ -1,9 +1,11 @@
 """raytracer_tpu_torch: the ray tracer in PyTorch, with CUDA kernels for Hopper.
 
-The hard renderer's forward frame: camera rays, the mirror-bounce loop in one
-hand-written CUDA kernel (``ops/cuda_fold.py``, ``csrc/trace_whole.cu``), and
-the Reinhard tone map. Entry points run on CUDA unless called with
-``device="cpu"``, which runs the kernel's plain PyTorch version.
+The hard renderer: camera rays, the mirror-bounce loop in one hand-written
+CUDA kernel (``ops/cuda_fold.py``, ``csrc/trace_whole.cu``) and the Reinhard
+tone map; its gradients through a second kernel, the whole-trace backward
+(``csrc/trace_whole_bwd.cu``), behind a ``torch.autograd.Function``; and the
+fit step (``parallel/train.py``). Entry points run on CUDA unless called
+with ``device="cpu"``, which runs the kernels' plain PyTorch versions.
 """
 
 from raytracer_tpu_torch.core.types import (
@@ -18,11 +20,15 @@ from raytracer_tpu_torch.core.types import (
     Walls,
 )
 from raytracer_tpu_torch.core.v3 import V3
+from raytracer_tpu_torch.parallel.train import default_params, make_fit_step, merge_params
 from raytracer_tpu_torch.render.integrator import render, trace_rays
 
 __all__ = [
     "render",
     "trace_rays",
+    "make_fit_step",
+    "default_params",
+    "merge_params",
     "V3",
     "Materials",
     "Spheres",

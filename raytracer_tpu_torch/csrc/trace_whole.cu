@@ -27,6 +27,12 @@
 // per lane and level ungated) is bound by operations, which the chunk gates
 // cut.
 //
+// With `emit_res` (the training forward) the kernel also writes each level
+// k >= 1's input rays and throughput, 7 planes per level, which the backward
+// kernel (trace_whole_bwd.cu) reads: 21 more output planes at depth 3, 174 MB
+// at 1080p, which at least doubles the bound. It is a template parameter,
+// so the inference launch compiles to the code without those stores.
+//
 // Float semantics follow the plain PyTorch version op for op: build with
 // -fmad=false and without fast math, so every product and sum rounds once as
 // a separate PyTorch op does, and a sphere miss is rejected through the NaN
@@ -91,6 +97,7 @@ __device__ __forceinline__ float light_term(
   return diffuse * dif + specular * spe;
 }
 
+template <bool EMIT_RES>
 __global__ void __launch_bounds__(BLOCK) trace_whole_kernel(
     Layout L, const float* __restrict__ g_tab,
     const float* __restrict__ ox_p, const float* __restrict__ oy_p,
@@ -98,7 +105,8 @@ __global__ void __launch_bounds__(BLOCK) trace_whole_kernel(
     const float* __restrict__ dy_p, const float* __restrict__ dz_p,
     const float* __restrict__ w_p, float* __restrict__ ar_p,
     float* __restrict__ ag_p, float* __restrict__ ab_p,
-    float* __restrict__ t_p, int* __restrict__ i_p, long long n) {
+    float* __restrict__ t_p, int* __restrict__ i_p, float* __restrict__ res_p,
+    long long n) {
   extern __shared__ float tab[];
   for (int j = threadIdx.x; j < L.n_tab; j += blockDim.x) tab[j] = g_tab[j];
   __syncthreads();
@@ -131,6 +139,11 @@ __global__ void __launch_bounds__(BLOCK) trace_whole_kernel(
 
   for (int k = 0; k <= L.depth; ++k) {
     const long long out = (long long)k * n + r;
+    if (EMIT_RES && k >= 1) {
+      float* res = res_p + (long long)(k - 1) * 7 * n + r;
+      res[0] = ox; res[n] = oy; res[2 * n] = oz;
+      res[3 * n] = dx; res[4 * n] = dy; res[5 * n] = dz; res[6 * n] = w;
+    }
     if (!(w > 0.0f)) {
       t_p[out] = MISS_T;
       i_p[out] = -1;
@@ -341,20 +354,27 @@ __global__ void __launch_bounds__(BLOCK) trace_whole_kernel(
 
 extern "C" {
 
-// Launch on `stream`. Returns the CUDA error of the launch (0 on success).
+// Launch on `stream`; `res` is written only with `emit_res` (and may be
+// null without). Returns the CUDA error of the launch (0 on success).
 int trace_whole_launch(const float* tab, int n_tab, int n_s, int unroll,
                        int n_w, int n_b, int n_pt, int n_sun, int gate,
-                       int depth, const float* ox, const float* oy,
-                       const float* oz, const float* dx, const float* dy,
-                       const float* dz, const float* w, float* ar, float* ag,
-                       float* ab, float* t_out, int* i_out, long long n,
-                       void* stream) {
+                       int depth, int emit_res, const float* ox,
+                       const float* oy, const float* oz, const float* dx,
+                       const float* dy, const float* dz, const float* w,
+                       float* ar, float* ag, float* ab, float* t_out,
+                       int* i_out, float* res, long long n, void* stream) {
   Layout L = make_layout(n_s, unroll, n_w, n_b, n_pt, n_sun, gate, depth);
-  if (L.n_tab != n_tab || n <= 0) return (int)cudaErrorInvalidValue;
-  const long long blocks = (n + BLOCK - 1) / BLOCK;
-  trace_whole_kernel<<<(unsigned)blocks, BLOCK, (size_t)n_tab * sizeof(float),
-                       (cudaStream_t)stream>>>(L, tab, ox, oy, oz, dx, dy, dz,
-                                               w, ar, ag, ab, t_out, i_out, n);
+  if (L.n_tab != n_tab || n <= 0 || (emit_res && depth > 0 && !res))
+    return (int)cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)((n + BLOCK - 1) / BLOCK);
+  const size_t smem = (size_t)n_tab * sizeof(float);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (emit_res)
+    trace_whole_kernel<true><<<blocks, BLOCK, smem, s>>>(
+        L, tab, ox, oy, oz, dx, dy, dz, w, ar, ag, ab, t_out, i_out, res, n);
+  else
+    trace_whole_kernel<false><<<blocks, BLOCK, smem, s>>>(
+        L, tab, ox, oy, oz, dx, dy, dz, w, ar, ag, ab, t_out, i_out, res, n);
   return (int)cudaGetLastError();
 }
 

@@ -15,6 +15,15 @@ and is mirrored by ``make_layout`` in the CUDA source.
 A lane whose throughput is 0 at a level is dead there: the kernel skips it,
 and both versions write ``(MISS_T, -1)`` as its (t, index) and leave its
 ray, throughput and accumulator unchanged.
+
+The backward: ``trace_whole(..., emit_res=True)`` also writes each level's
+input rays and throughput, and ``trace_whole_bwd`` launches
+csrc/trace_whole_bwd.cu, which sweeps the levels in reverse from those
+residuals and runs the hand-derived adjoint of ``_level_math`` (the
+differentiable part of a level, at fixed selections). Its plain version,
+``trace_whole_bwd_reference``, replays ``_level_math`` under autograd. Both
+return cotangents of the rays and of ``attribute_tables(scene)``, whose
+autograd carries them back to the scene's leaves.
 """
 
 from __future__ import annotations
@@ -37,8 +46,12 @@ __all__ = [
     "resolve_gate_geom",
     "fused_tables",
     "check_fused_class",
+    "attribute_tables",
+    "Residuals",
     "trace_whole_reference",
     "trace_whole",
+    "trace_whole_bwd_reference",
+    "trace_whole_bwd",
 ]
 
 # The fused class: scenes of at most 4 sphere chunks (64 spheres) traced to
@@ -67,6 +80,14 @@ _LAYOUT = (
     ("n_sun", ("sdx", "sdy", "sdz", "scr", "scg", "scb")),
     ("sky", ("sky",)),  # horizon rgb, zenith rgb, ground rgb, exponent
 )
+
+# Winner geometry g0..g5 by primitive kind (sphere, wall, box; None is a
+# zero column), then the material columns: the 14 attribute columns.
+_GEOM_COLS = (
+    ("cx", "nx", "bmnx"), ("cy", "ny", "bmny"), ("cz", "nz", "bmnz"),
+    ("srad", "px", "bmxx"), (None, "py", "bmxy"), (None, "pz", "bmxz"),
+)
+_MAT_COLS = ("mcr", "mcg", "mcb", "mam", "mmt", "mdf", "msp", "mex")
 
 
 def resolve_unroll(n_s: int) -> int:
@@ -366,41 +387,92 @@ def _fold(t: dict, counts: dict, o: V3, d: V3):
     return bt, bi
 
 
+def _attr_columns(t: dict, counts: dict) -> list:
+    """The 14 per-primitive attribute columns (``[n_prim]`` each) of the
+    fused table, in ``attribute_tables`` order: winner geometry g0..g5 (a
+    sphere's center, radius, 0, 0; a wall's normal and corner; a box's min
+    and max corners), then the 8 material columns."""
+    none = t["cx"].new_zeros(counts["n_s"])
+    geom = [torch.cat([t[sn] if sn else none, t[wn], t[bn]]) for sn, wn, bn in _GEOM_COLS]
+    return geom + [t[name] for name in _MAT_COLS]
+
+
+def _ls_vector(t: dict) -> torch.Tensor:
+    """Light and sky scalars in the kernels' packing order: 6 per point
+    light (position xyz, colour rgb), 6 per sun (unit direction xyz, colour
+    rgb), then the 10 sky scalars."""
+    pt = torch.stack([t[n] for n in ("lpx", "lpy", "lpz", "lcr", "lcg", "lcb")], dim=1)
+    sun = torch.stack([t[n] for n in ("sdx", "sdy", "sdz", "scr", "scg", "scb")], dim=1)
+    return torch.cat([pt.reshape(-1), sun.reshape(-1), t["sky"]])
+
+
+def attribute_tables(scene: Scene) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernels' differentiable inputs: ``(attrs f32[n_prim, 14], ls
+    f32[6 n_pt + 6 n_sun + 10])``.
+
+    ``attrs`` holds each primitive's 6 geometry and 8 material columns
+    (``_attr_columns`` order, the JAX package's parameter-gradient column
+    order), ``ls`` the light and sky scalars (``_ls_vector`` order, the sun
+    direction made unit). Built with autograd and without ``no_grad``, so
+    cotangents of the two tables map back to the scene's leaves; their
+    values equal the fused table's, which the kernels read.
+    """
+    s, wl, b = scene.spheres, scene.walls, scene.boxes
+    geom = torch.cat([
+        torch.cat([s.center, s.radius[:, None], s.radius.new_zeros((len(s), 2))], dim=1),
+        torch.cat([wl.normal, wl.position], dim=1),
+        torch.cat([b.minimum, b.maximum], dim=1),
+    ])
+    m = _packed_mat_tables(scene)
+    attrs = torch.cat([geom, torch.stack([m[n] for n in _MAT_COLS], dim=1)], dim=1)
+    return attrs, _ls_vector(_light_sky_tables(scene))
+
+
+def _gather(cols, bi: torch.Tensor, hit: torch.Tensor) -> list:
+    """The winner's entry of each per-primitive column (0 on a miss)."""
+    gi = bi.clamp_min(0).long()
+    return [
+        torch.where(hit, col[gi], 0.0) if col.numel()
+        else torch.zeros(hit.shape, dtype=torch.float32, device=hit.device)
+        for col in cols
+    ]
+
+
+def _kinds(bi: torch.Tensor, hit: torch.Tensor, counts: dict):
+    """(is sphere, is wall, is box) of each lane's winner."""
+    wb, bb = counts["n_s"], counts["n_s"] + counts["n_w"]
+    return hit & (bi < wb), hit & (bi >= wb) & (bi < bb), hit & (bi >= bb)
+
+
 def _level(t: dict, counts: dict, o: V3, d: V3, w, is_last: bool):
-    """One level at fixed rays: fold, regather, record, shade, reflect.
+    """One level at fixed rays: fold, regather, then ``_level_math``.
 
     Returns ``(t_out, index, increment V3, w_next, o_next, d_next)`` for
     every lane, alive or not; the caller masks the dead ones.
     """
-    n_s, n_w = counts["n_s"], counts["n_w"]
-    ox, oy, oz = o
-    dx, dy, dz = d
     bt, bi = _fold(t, counts, o, d)
     hit = bt < MISS_T
-    gi = bi.clamp_min(0).long()
-
-    def take(col):
-        """The winner's entry of a per-primitive column (0 on a miss)."""
-        return torch.where(hit, col[gi], 0.0) if col.numel() else torch.zeros_like(bt)
-
-    # Winner geometry g0..g5: a sphere's center and radius, a wall's normal
-    # and corner, a box's min and max corners.
-    none = t["cx"].new_zeros(n_s)
-    g0, g1, g2, g3, g4, g5 = (
-        take(torch.cat([t[sn] if sn else none, t[wn], t[bn]]))
-        for sn, wn, bn in (
-            ("cx", "nx", "bmnx"), ("cy", "ny", "bmny"), ("cz", "nz", "bmnz"),
-            ("srad", "px", "bmxx"), (None, "py", "bmxy"), (None, "pz", "bmxz"),
-        )
+    acc = _gather(_attr_columns(t, counts), bi, hit)
+    t_out, inc, w_next, o_next, d_next = _level_math(
+        acc, o, d, w, bt, hit, *_kinds(bi, hit, counts), _ls_vector(t), counts,
+        is_last,
     )
-    wb, bb = n_s, n_s + n_w
-    is_s = hit & (bi < wb)
-    is_w = hit & (bi >= wb) & (bi < bb)
-    is_b = hit & (bi >= bb)
+    return t_out, bi, inc, w_next, o_next, d_next
 
-    # Winner t, recomputed in the full form (strict det > 0, else the
-    # fold's t), then hit point and normal.
-    tt = bt
+
+def _record_math(acc, t_sel, hit, is_s, is_w, is_b, o: V3, d: V3):
+    """Winner t, hit point and normal from the gathered attributes.
+
+    A differentiable function of ``acc`` (the 14 gathered planes) and the
+    rays; ``t_sel`` (the fold's t, or the level's saved t) and the masks
+    are constants. The sphere's t is recomputed in the full form where
+    ``det > 0`` strictly (else the fold's t stands, so no miss or graze
+    lane forms sqrt'(0)); the wall's where ``|denom| > 1e-12``.
+    """
+    ox, oy, oz = o
+    dx, dy, dz = d
+    g0, g1, g2, g3, g4, g5 = acc[:6]
+    tt = t_sel
     bq = 2.0 * (dx * (ox - g0) + dy * (oy - g1) + dz * (oz - g2))
     cq = (ox - g0) * (ox - g0) + (oy - g1) * (oy - g1) + (oz - g2) * (oz - g2) - g3 * g3
     det = bq * bq - 4.0 * cq
@@ -439,10 +511,26 @@ def _level(t: dict, counts: dict, o: V3, d: V3, w, is_last: bool):
     hnx = torch.where(hit, hn[0], 0.0)
     hny = torch.where(hit, hn[1], 0.0)
     hnz = torch.where(hit, hn[2], 1.0)
+    return tt, V3(hpx, hpy, hpz), V3(hnx, hny, hnz)
 
-    colr, colg, colb, amb, met, dif, spe, exq = (
-        take(t[name]) for name in ("mcr", "mcg", "mcb", "mam", "mmt", "mdf", "msp", "mex")
-    )
+
+def _level_math(acc, o: V3, d: V3, w, t_sel, hit, is_s, is_w, is_b,
+                ls: torch.Tensor, counts: dict, is_last: bool):
+    """One level's differentiable math at fixed selections: winner record,
+    Blinn-Phong shading, sky, accumulator increment and mirror bounce.
+
+    A function of the gathered attributes ``acc``, the rays, the throughput
+    ``w`` and the light/sky scalars ``ls``; ``t_sel`` and the masks are
+    constants. The forward (``_level``) and the backward's plain version
+    (``trace_whole_bwd_reference``) both run it, so the gradient is that
+    of the forward's own arithmetic. Returns ``(t_out, increment V3,
+    w_next, o_next V3, d_next V3)``.
+    """
+    dx, dy, dz = d
+    tt, hp, hn = _record_math(acc, t_sel, hit, is_s, is_w, is_b, o, d)
+    hpx, hpy, hpz = hp
+    hnx, hny, hnz = hn
+    colr, colg, colb, amb, met, dif, spe, exq = acc[6:]
 
     # Blinn-Phong shading.
     vwx, vwy, vwz = -dx, -dy, -dz
@@ -458,28 +546,31 @@ def _level(t: dict, counts: dict, o: V3, d: V3, w, is_last: bool):
         )
         return diffuse * dif + specular * spe
 
+    n_pt, n_sun = counts["n_pt"], counts["n_sun"]
     ir = torch.zeros_like(w)
     ig = torch.zeros_like(w)
     ib = torch.zeros_like(w)
-    for li in range(counts["n_pt"]):
-        ldx = t["lpx"][li] - hpx
-        ldy = t["lpy"][li] - hpy
-        ldz = t["lpz"][li] - hpz
+    for li in range(n_pt):
+        px, py, pz, cr, cg, cb = ls[6 * li:6 * li + 6]
+        ldx = px - hpx
+        ldy = py - hpy
+        ldz = pz - hpz
         n2 = ldx * ldx + ldy * ldy + ldz * ldz
         inv = torch.rsqrt(torch.clamp_min(n2, 1e-12))
         term = light_terms(ldx * inv, ldy * inv, ldz * inv)
-        ir = ir + t["lcr"][li] * term
-        ig = ig + t["lcg"][li] * term
-        ib = ib + t["lcb"][li] * term
-    for si in range(counts["n_sun"]):
-        term = light_terms(t["sdx"][si], t["sdy"][si], t["sdz"][si])
-        ir = ir + t["scr"][si] * term
-        ig = ig + t["scg"][si] * term
-        ib = ib + t["scb"][si] * term
+        ir = ir + cr * term
+        ig = ig + cg * term
+        ib = ib + cb * term
+    for si in range(n_sun):
+        sx, sy, sz, cr, cg, cb = ls[6 * (n_pt + si):6 * (n_pt + si) + 6]
+        term = light_terms(sx, sy, sz)
+        ir = ir + cr * term
+        ig = ig + cg * term
+        ib = ib + cb * term
     local = V3(colr * (ir + amb), colg * (ig + amb), colb * (ib + amb))
 
     # Sky: ground below the horizon, a power gradient above.
-    sky = t["sky"]
+    sky = ls[6 * (n_pt + n_sun):]
     z = dz
     grad = torch.where(
         z > 0.0, torch.exp(sky[9] * torch.log(torch.where(z > 0.0, z, 1.0))), 0.0
@@ -491,26 +582,27 @@ def _level(t: dict, counts: dict, o: V3, d: V3, w, is_last: bool):
 
     hc = local if is_last else local * (1.0 - met)
     inc = V3.where(hit & (w > 0.0), hc, sk) * w
-    t_out = torch.where(hit, tt, bt)
+    t_out = torch.where(hit, tt, t_sel)
     w_next = w * torch.where(hit, met, 0.0)
-    hn = V3(hnx, hny, hnz)
-    o_next = V3.where(hit, V3(hpx, hpy, hpz) + hn * REFLECT_EPS, o)
+    o_next = V3.where(hit, hp + hn * REFLECT_EPS, o)
     dn2 = 2.0 * (dx * hnx + dy * hny + dz * hnz)
     d_next = V3.where(hit, d - hn * dn2, d)
-    return t_out, bi, inc, w_next, o_next, d_next
+    return t_out, inc, w_next, o_next, d_next
 
 
 def trace_whole_reference(tables: FusedTables, o: V3, d: V3, w: torch.Tensor,
-                          depth: int):
+                          depth: int, emit_res: bool = False):
     """Plain PyTorch version of ``trace_whole``: the same outputs for the
     same inputs, on any device, for any scene size and depth (it folds
     every primitive, where the kernel gates whole chunks away; the gates
     only skip chunks that cannot win, so the fold is the same)."""
     t, counts = tables.cols, tables.counts
     acc = V3(torch.zeros_like(w), torch.zeros_like(w), torch.zeros_like(w))
-    ts, idxs = [], []
+    ts, idxs, res = [], [], []
     with torch.no_grad():
         for k in range(depth + 1):
+            if emit_res and k >= 1:
+                res.append(torch.stack([*o, *d, w]))
             alive = w > 0.0
             t_k, i_k, inc, w_next, o_next, d_next = _level(
                 t, counts, o, d, w, is_last=k == depth
@@ -520,7 +612,88 @@ def trace_whole_reference(tables: FusedTables, o: V3, d: V3, w: torch.Tensor,
             acc = acc + V3.where(alive, inc, V3(*(torch.zeros_like(w),) * 3))
             w = torch.where(alive, w_next, w)
             o, d = V3.where(alive, o_next, o), V3.where(alive, d_next, d)
-    return acc, torch.stack(ts), torch.stack(idxs)
+    out = (acc, torch.stack(ts), torch.stack(idxs))
+    if emit_res:
+        out += (torch.stack(res) if res else w.new_zeros((0, 7, *w.shape)),)
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class Residuals:
+    """What the backward needs of a forward trace: level 0's input rays and
+    throughput (the caller's planes), each level's selections ``t``
+    f32[depth+1, ...] and ``i`` i32[depth+1, ...], and ``res``
+    f32[depth, 7, ...], the input rays and throughput of levels 1..depth as
+    ``trace_whole(..., emit_res=True)`` writes them."""
+
+    o: V3
+    d: V3
+    w: torch.Tensor
+    t: torch.Tensor
+    i: torch.Tensor
+    res: torch.Tensor
+
+    def level(self, k: int):
+        """``(o V3, d V3, w)`` entering level ``k``."""
+        if k == 0:
+            return self.o, self.d, self.w
+        r = self.res[k - 1]
+        return V3(r[0], r[1], r[2]), V3(r[3], r[4], r[5]), r[6]
+
+
+def trace_whole_bwd_reference(tables: FusedTables, attrs: torch.Tensor,
+                              ls: torch.Tensor, levels: Residuals,
+                              ct_acc: V3, depth: int):
+    """Plain PyTorch version of ``trace_whole_bwd``: the cotangents of
+    ``trace_whole``'s rgb with respect to its inputs at fixed selections.
+
+    For k = depth..0 it regathers each alive lane's winner from ``attrs``
+    by the saved index, replays ``_level_math`` from the saved rays,
+    throughput and t with autograd, and takes the gradient of the image
+    cotangent ``ct_acc`` plus the cotangents carried from level k+1. Lanes
+    with ``w == 0`` at a level are dead there: their cotangents pass
+    through unchanged and they add nothing. ``attrs`` and ``ls`` are
+    ``attribute_tables``' values for the scene of ``tables``.
+
+    The table cotangents are summed over lanes in float64 (one
+    ``index_add_`` per level), so their rounding does not grow with the
+    number of lanes that hit one primitive.
+
+    Returns ``(ct_o V3, ct_d V3, ct_w, ct_attrs f32[n_prim, 14], ct_ls)``.
+    """
+    counts = tables.counts
+    attrs = attrs.detach()
+    ls = ls.detach().requires_grad_(True)
+    ct7 = [torch.zeros_like(levels.w) for _ in range(7)]  # d(next o3, d3, w)
+    ct_attrs = torch.zeros(attrs.shape, dtype=torch.float64, device=attrs.device)
+    ct_ls = torch.zeros(ls.shape, dtype=torch.float64, device=ls.device)
+    for k in reversed(range(depth + 1)):
+        o, d, w = levels.level(k)
+        alive = w > 0.0
+        if not bool(alive.any()):
+            continue
+        i_k = levels.i[k][alive]
+        hit = i_k >= 0
+        gi = i_k.clamp_min(0).long()
+        with torch.enable_grad():
+            rays = [c[alive].detach().requires_grad_(True) for c in (*o, *d, w)]
+            rows = attrs[gi] if attrs.shape[0] else attrs.new_zeros((gi.numel(), 14))
+            rows.requires_grad_(True)
+            acc = [torch.where(hit, col, 0.0) for col in rows.unbind(1)]
+            _, inc, w_next, o_next, d_next = _level_math(
+                acc, V3(*rays[:3]), V3(*rays[3:6]), rays[6], levels.t[k][alive],
+                hit, *_kinds(i_k, hit, counts), ls, counts, k == depth,
+            )
+            outs = (*inc, w_next, *o_next, *d_next)
+            cts = (*(c[alive] for c in ct_acc), *(c[alive] for c in (ct7[6], *ct7[:6])))
+            grads = torch.autograd.grad(outs, (*rays, rows, ls), cts, allow_unused=True)
+        for j in range(7):
+            ct7[j] = ct7[j].masked_scatter(alive, grads[j])
+        if grads[7] is not None and attrs.shape[0]:
+            ct_attrs.index_add_(0, gi[hit], grads[7][hit].double())
+        if grads[8] is not None:
+            ct_ls += grads[8].double()
+    return V3(*ct7[:3]), V3(*ct7[3:6]), ct7[6], ct_attrs.float(), ct_ls.float()
 
 
 # ---------------------------------------------------------------------------
@@ -528,35 +701,24 @@ def trace_whole_reference(tables: FusedTables, o: V3, d: V3, w: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _check_planes(planes, shape, device):
+def _check_planes(planes, shape, device, name="trace_whole", dtype=torch.float32):
     for p in planes:
-        if p.device != device or p.dtype != torch.float32:
+        if p.device != device or p.dtype != dtype:
             raise ValueError(
-                f"trace_whole takes float32 planes on {device}, got "
+                f"{name} takes {str(dtype)[6:]} planes on {device}, got "
                 f"{p.dtype} on {p.device}"
             )
         if p.shape != shape or not p.is_contiguous():
             raise ValueError(
-                f"trace_whole takes contiguous planes of shape {tuple(shape)}, "
+                f"{name} takes contiguous planes of shape {tuple(shape)}, "
                 f"got {tuple(p.shape)} (contiguous={p.is_contiguous()})"
             )
 
 
-def trace_whole(tables: FusedTables, o: V3, d: V3, w: torch.Tensor, depth: int):
-    """Every bounce level of a ray tile: ``(rgb V3, t f32[depth+1, ...],
-    index i32[depth+1, ...])``.
-
-    Inputs: ray origins ``o``, unit directions ``d`` and throughput ``w``,
-    seven contiguous float32 planes of one shape on one device. On CPU
-    tensors this is ``trace_whole_reference``; on CUDA tensors it launches
-    the kernel on the current stream, or raises.
-    """
-    dev, shape = w.device, w.shape
-    _check_planes((*o, *d, w), shape, dev)
-    if dev.type == "cpu":
-        return trace_whole_reference(tables, o, d, w, depth)
+def _check_kernel_class(tables: FusedTables, depth: int, dev, name: str):
+    """What both kernels need of the scene table and the depth on CUDA."""
     if dev.type != "cuda":
-        raise ValueError(f"trace_whole runs on CPU or CUDA tensors, got {dev}")
+        raise ValueError(f"{name} runs on CPU or CUDA tensors, got {dev}")
     if tables.packed.device != dev or not tables.packed.is_contiguous():
         raise ValueError("the packed scene table must be contiguous on the rays' device")
     if not 0 <= depth <= FUSED_MAX_DEPTH:
@@ -566,38 +728,140 @@ def trace_whole(tables: FusedTables, o: V3, d: V3, w: torch.Tensor, depth: int):
             f"scene tables ({tables.counts['n_c']} chunks, "
             f"{tables.smem_bytes} bytes) exceed the kernel's class"
         )
+
+
+def _table_args(tables: FusedTables, depth: int) -> tuple:
+    c = tables.counts
+    return (
+        tables.packed.data_ptr(), tables.packed.numel(),
+        c["n_s"], c["unroll"], c["n_w"], c["n_b"], c["n_pt"], c["n_sun"],
+        c["gate"], depth,
+    )
+
+
+def _raise_on(err: int, lib, name: str):
+    if err:
+        raise RuntimeError(
+            f"{name} launch failed: CUDA error {err} "
+            f"({getattr(lib, name + '_error_string')(err).decode()})"
+        )
+
+
+def trace_whole(tables: FusedTables, o: V3, d: V3, w: torch.Tensor, depth: int,
+                emit_res: bool = False):
+    """Every bounce level of a ray tile: ``(rgb V3, t f32[depth+1, ...],
+    index i32[depth+1, ...])``, and with ``emit_res`` also ``res``
+    f32[depth, 7, ...], the input rays and throughput of levels 1..depth
+    (``Residuals.res``; level 0's are the caller's planes).
+
+    Inputs: ray origins ``o``, unit directions ``d`` and throughput ``w``,
+    seven contiguous float32 planes of one shape on one device. On CPU
+    tensors this is ``trace_whole_reference``; on CUDA tensors it launches
+    the kernel on the current stream, or raises.
+    """
+    dev, shape = w.device, w.shape
+    _check_planes((*o, *d, w), shape, dev)
+    if dev.type == "cpu":
+        return trace_whole_reference(tables, o, d, w, depth, emit_res)
+    _check_kernel_class(tables, depth, dev, "trace_whole")
     rgb = [torch.empty(shape, dtype=torch.float32, device=dev) for _ in range(3)]
     t_out = torch.empty((depth + 1, *shape), dtype=torch.float32, device=dev)
     i_out = torch.empty((depth + 1, *shape), dtype=torch.int32, device=dev)
+    res = torch.empty((depth, 7, *shape), dtype=torch.float32, device=dev) if emit_res else None
     n = w.numel()
     if n:
         lib = _build.load("trace_whole", _SIGNATURES)
-        c = tables.counts
         err = lib.trace_whole_launch(
-            tables.packed.data_ptr(), tables.packed.numel(),
-            c["n_s"], c["unroll"], c["n_w"], c["n_b"], c["n_pt"], c["n_sun"],
-            c["gate"], depth,
+            *_table_args(tables, depth), int(emit_res),
             *(p.data_ptr() for p in (*o, *d, w)),
             *(p.data_ptr() for p in rgb), t_out.data_ptr(), i_out.data_ptr(),
+            res.data_ptr() if emit_res else None,
             n, torch.cuda.current_stream(dev).cuda_stream,
         )
-        if err:
-            raise RuntimeError(
-                f"trace_whole launch failed: CUDA error {err} "
-                f"({lib.trace_whole_error_string(err).decode()})"
-            )
+        _raise_on(err, lib, "trace_whole")
         trace_whole.launches += 1
-    return V3(*rgb), t_out, i_out
+    out = (V3(*rgb), t_out, i_out)
+    return out + (res,) if emit_res else out
 
 
 trace_whole.launches = 0
 
-# C signatures of csrc/trace_whole.cu's exported functions.
+
+def trace_whole_bwd(tables: FusedTables, attrs: torch.Tensor, ls: torch.Tensor,
+                    levels: Residuals, ct_acc: V3, depth: int):
+    """The whole-trace backward: ``(ct_o V3, ct_d V3, ct_w, ct_attrs
+    f32[n_prim, 14], ct_ls)``, the cotangents of ``trace_whole``'s inputs
+    and of the attribute and light/sky tables for the image cotangent
+    ``ct_acc``, at the selections and residuals ``levels`` of its forward.
+
+    On CPU tensors this is ``trace_whole_bwd_reference``; on CUDA tensors
+    it launches csrc/trace_whole_bwd.cu on the current stream, or raises.
+    The kernel reads the scene from ``tables.packed``; ``attrs`` and ``ls``
+    only fix the shapes of its outputs. Each block of the kernel writes
+    its own partial sums of the table cotangents, summed here.
+    """
+    dev, shape = levels.w.device, levels.w.shape
+    n_prim = tables.counts["n_s"] + tables.counts["n_w"] + tables.counts["n_b"]
+    n_ls = 6 * (tables.counts["n_pt"] + tables.counts["n_sun"]) + 10
+    name = "trace_whole_bwd"
+    _check_planes((*levels.o, *levels.d, levels.w, *ct_acc), shape, dev, name)
+    _check_planes((levels.t,), (depth + 1, *shape), dev, name)
+    _check_planes((levels.i,), (depth + 1, *shape), dev, name, torch.int32)
+    _check_planes((levels.res,), (depth, 7, *shape), dev, name)
+    _check_planes((attrs,), (n_prim, 14), dev, name)
+    _check_planes((ls,), (n_ls,), dev, name)
+    if dev.type == "cpu":
+        return trace_whole_bwd_reference(tables, attrs, ls, levels, ct_acc, depth)
+    _check_kernel_class(tables, depth, dev, name)
+    cts = [torch.empty(shape, dtype=torch.float32, device=dev) for _ in range(7)]
+    n = levels.w.numel()
+    if not n:
+        return V3(*cts[:3]), V3(*cts[3:6]), cts[6], torch.zeros_like(attrs), torch.zeros_like(ls)
+    lib = _build.load(name, _BWD_SIGNATURES)
+    n_blocks = min(-(-n // _BWD_BLOCK), _BWD_BLOCKS_PER_SM * _sm_count(dev))
+    pg = torch.empty((n_blocks, n_prim, 14), dtype=torch.float32, device=dev)
+    pl = torch.empty((n_blocks, n_ls), dtype=torch.float32, device=dev)
+    err = lib.trace_whole_bwd_launch(
+        *_table_args(tables, depth),
+        *(p.data_ptr() for p in (*levels.o, *levels.d, levels.w)),
+        levels.res.data_ptr(), levels.t.data_ptr(), levels.i.data_ptr(),
+        *(p.data_ptr() for p in ct_acc), *(p.data_ptr() for p in cts),
+        pg.data_ptr(), pl.data_ptr(), n, n_blocks,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(err, lib, name)
+    trace_whole_bwd.launches += 1
+    return V3(*cts[:3]), V3(*cts[3:6]), cts[6], pg.sum(dim=0), pl.sum(dim=0)
+
+
+trace_whole_bwd.launches = 0
+
+# The backward kernel's block size (BLOCK in csrc/trace_whole_bwd.cu) and
+# its grid cap: a grid-stride loop over the rays in at most this many
+# blocks per SM, which bounds the per-block partial sums it writes.
+_BWD_BLOCK = 256
+_BWD_BLOCKS_PER_SM = 8
+
+
+def _sm_count(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+# C signatures of the exported functions of csrc/trace_whole.cu and
+# csrc/trace_whole_bwd.cu.
+_TABLE_ARGTYPES = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_int] * 8
 _SIGNATURES = {
     "trace_whole_launch": (
         ctypes.c_int,
-        [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_int] * 8
-        + [ctypes.c_void_p] * 12 + [ctypes.c_longlong, ctypes.c_void_p],
+        _TABLE_ARGTYPES + [ctypes.c_int] + [ctypes.c_void_p] * 13
+        + [ctypes.c_longlong, ctypes.c_void_p],
     ),
     "trace_whole_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+}
+_BWD_SIGNATURES = {
+    "trace_whole_bwd_launch": (
+        ctypes.c_int,
+        _TABLE_ARGTYPES + [ctypes.c_void_p] * 22
+        + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
+    ),
+    "trace_whole_bwd_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }

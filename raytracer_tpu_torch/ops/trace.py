@@ -2,13 +2,16 @@
 
 ``trace_soa`` runs every bounce level of a ray tile in one call:
 ``trace_whole`` (the CUDA kernel) for CUDA tensors, ``trace_whole_reference``
-(its plain PyTorch version) for CPU tensors. Every per-ray quantity is a
-component plane in image layout ``[rows, W]`` (see core/v3.py).
+(its plain PyTorch version) for CPU tensors. When gradients are wanted it
+goes through ``_WholeTrace``, whose backward is ``trace_whole_bwd`` (the
+backward kernel, or its plain version on the CPU). Every per-ray quantity is
+a component plane in image layout ``[rows, W]`` (see core/v3.py).
 """
 
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from raytracer_tpu_torch.core.types import Camera, Scene
 from raytracer_tpu_torch.core.v3 import V3
@@ -69,6 +72,44 @@ def _wall_tables(walls) -> dict:
     }
 
 
+class _WholeTrace(torch.autograd.Function):
+    """``trace_whole`` with ``trace_whole_bwd`` as its backward.
+
+    The counterpart of the JAX package's ``_pallas_trace`` custom VJP. Every
+    fold is selection-only, so the gradient is that of each level's
+    ``_level_math`` at the forward's selections. The forward runs the
+    kernel with ``emit_res`` and saves the selections and each level's input
+    rays and throughput; the backward runs the backward kernel on them. The
+    kernels read the scene from the packed ``tables``; ``attrs`` and ``ls``
+    (``attribute_tables`` of the same scene) carry the table cotangents
+    back to the scene's leaves through autograd.
+    """
+
+    @staticmethod
+    def forward(ctx, tables, depth, attrs, ls, ox, oy, oz, dx, dy, dz):
+        from raytracer_tpu_torch.ops import cuda_fold
+
+        o, d = V3(ox, oy, oz), V3(dx, dy, dz)
+        w = torch.ones_like(dx)
+        rgb, t, i, res = cuda_fold.trace_whole(tables, o, d, w, depth, emit_res=True)
+        ctx.tables, ctx.depth = tables, depth
+        ctx.save_for_backward(attrs, ls, ox, oy, oz, dx, dy, dz, w, t, i, res)
+        return tuple(rgb)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, ct_r, ct_g, ct_b):
+        from raytracer_tpu_torch.ops import cuda_fold
+
+        attrs, ls, ox, oy, oz, dx, dy, dz, w, t, i, res = ctx.saved_tensors
+        levels = cuda_fold.Residuals(V3(ox, oy, oz), V3(dx, dy, dz), w, t, i, res)
+        ct = V3(*(c.contiguous() for c in (ct_r, ct_g, ct_b)))
+        ct_o, ct_d, _, ct_attrs, ct_ls = cuda_fold.trace_whole_bwd(
+            ctx.tables, attrs, ls, levels, ct, ctx.depth
+        )
+        return None, None, ct_attrs, ct_ls, *ct_o, *ct_d
+
+
 def trace_soa(scene: Scene, o: V3, d: V3, *, depth: int = 3) -> V3:
     """Radiance per ray (pre-tonemap) after ``depth`` mirror bounces.
 
@@ -77,22 +118,24 @@ def trace_soa(scene: Scene, o: V3, d: V3, *, depth: int = 3) -> V3:
     All levels run in ``trace_whole``: its plain PyTorch version on CPU
     tensors (any scene, any depth), the CUDA kernel on CUDA tensors. The
     kernel covers scenes of at most ``FUSED_MAX_CHUNKS`` sphere chunks at
-    ``0 <= depth <= FUSED_MAX_DEPTH``; outside that class, or when a scene
-    leaf or a ray requires grad, a CUDA call raises.
+    ``0 <= depth <= FUSED_MAX_DEPTH``; outside that class a CUDA call
+    raises. When grad is enabled and a scene leaf or a ray requires it, the
+    trace runs through ``_WholeTrace`` and is differentiable in every scene
+    leaf the shading reads and in the rays.
     """
     from raytracer_tpu_torch.ops import cuda_fold
 
     shape = torch.broadcast_shapes(*(c.shape for c in (*o, *d)))
     o, d = o.broadcast_to(shape), d.broadcast_to(shape)
-    w = torch.ones(shape, dtype=torch.float32, device=d.x.device)
     if d.x.device.type != "cpu":
-        if any(t.requires_grad for t in (*scene.tensors(), *o, *d)):
-            raise NotImplementedError(
-                "gradients through the whole-trace kernel need its backward "
-                "kernel, which is not ported yet (ROADMAP queue 2, kernel 2)"
-            )
         cuda_fold.check_fused_class(scene, depth)
     tables = cuda_fold.fused_tables(scene)
+    if torch.is_grad_enabled() and any(
+        t.requires_grad for t in (*scene.tensors(), *o, *d)
+    ):
+        attrs, ls = cuda_fold.attribute_tables(scene)
+        return V3(*_WholeTrace.apply(tables, depth, attrs, ls, *o, *d))
+    w = torch.ones(shape, dtype=torch.float32, device=d.x.device)
     acc, _, _ = cuda_fold.trace_whole(tables, o, d, w, depth)
     return acc
 
