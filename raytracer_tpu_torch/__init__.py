@@ -3,8 +3,10 @@
 The hard renderer: camera rays, the mirror-bounce loop in one hand-written
 CUDA kernel (``ops/cuda_fold.py``, ``csrc/trace_whole.cu``) and the Reinhard
 tone map; its gradients through a second kernel, the whole-trace backward
-(``csrc/trace_whole_bwd.cu``), behind a ``torch.autograd.Function``; and the
-fit step (``parallel/train.py``). Entry points run on CUDA unless called
+(``csrc/trace_whole_bwd.cu``), behind a ``torch.autograd.Function``; large
+scenes and deep traces through the per-level chain (``ops/cuda_level.py``:
+``csrc/ray_stats.cu``, ``csrc/trace_level.cu``, ``csrc/trace_level_bwd.cu``);
+and the fit step (``parallel/train.py``). Entry points run on CUDA unless called
 with ``device="cpu"``, which runs the kernels' plain PyTorch versions.
 """
 

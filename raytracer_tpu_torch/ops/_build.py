@@ -2,8 +2,10 @@
 
 Each ``csrc/<name>.cu`` exports plain C functions. It is compiled at first
 use into a shared library under ``build/kernels/`` at the root of the
-checkout, named by a hash of its source and flags, and loaded with
-``ctypes``. Nothing is compiled when a module is imported.
+checkout, named by a hash of its source, of every ``csrc`` header it
+includes (``#include "..."``, followed into the headers' own includes) and
+of the flags, and loaded with ``ctypes``. Nothing is compiled when a module
+is imported.
 
 The flags keep IEEE float semantics: no fast math, and ``-fmad=false`` so
 that ``a * b + c`` rounds twice as the op-by-op PyTorch version does.
@@ -14,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -44,9 +47,26 @@ def build_command(src: Path, out: Path, nvcc: str = "nvcc") -> list[str]:
     return [nvcc, *NVCC_FLAGS, "-o", str(out), str(src)]
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(src: Path) -> list[Path]:
+    """``src`` and every ``csrc`` file it includes, directly or not, in the
+    order first met."""
+    seen, todo = [], [src]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [CSRC / m.decode() for m in _INCLUDE.findall(path.read_bytes())]
+    return seen
+
+
 def _library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    key = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources(CSRC / f"{name}.cu"):
+        key.update(path.name.encode() + b"\0" + path.read_bytes())
     return BUILD_DIR / f"{name}-{key.hexdigest()[:16]}.so"
 
 

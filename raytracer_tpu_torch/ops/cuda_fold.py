@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
 import torch
 
@@ -45,18 +46,26 @@ __all__ = [
     "resolve_unroll",
     "resolve_gate_geom",
     "fused_tables",
+    "in_fused_class",
     "check_fused_class",
     "attribute_tables",
     "Residuals",
     "trace_whole_reference",
     "trace_whole",
+    "trace_level_bwd_reference",
     "trace_whole_bwd_reference",
     "trace_whole_bwd",
 ]
 
-# The fused class: scenes of at most 4 sphere chunks (64 spheres) traced to
-# at most 10 bounces, the reference renderer's own maximum recursion depth.
-FUSED_MAX_CHUNKS = 4
+# The fused class: scenes of at most 24 sphere chunks traced to at most 10
+# bounces (the reference renderer's own maximum recursion depth), whose table
+# fits the shared memory a block gets by default. The JAX package stops at 4
+# chunks; on the H100 the whole-trace kernels beat the per-level chain at
+# every chunk count measured, 4 to 24 (grids of 64 to 768 spheres at
+# 1920x1080 d3, forward and backward; chip_smoke.py's `whole_vs_levels`,
+# PERF.md). Past that, only the 1024-sphere grid is measured, and its table
+# no longer fits.
+FUSED_MAX_CHUNKS = 24
 FUSED_MAX_DEPTH = 10
 _SMEM_LIMIT = 48 * 1024  # dynamic shared memory a block gets by default
 
@@ -190,26 +199,38 @@ def _chunk_culling_tables(scene: Scene, unroll: int) -> dict:
     the box midpoint as center, the largest member reach plus ``_GATE_PAD``
     as radius. The slab is the box of all spheres. The gates only skip a
     chunk that no hit on the ray's live segment can come from, so the fold
-    is the same with or without them.
+    is the same with or without them. All chunks at once, a fixed number of
+    ops whatever the scene's size.
     """
     s = scene.spheres
+    n_s = len(s)
+    n_c = -(-n_s // unroll) if n_s else 0
+    pad = n_c * unroll - n_s
     lo_all, hi_all = s.center - s.radius[:, None], s.center + s.radius[:, None]
-    cols = {n: [] for n in ("alx", "aly", "alz", "ahx", "ahy", "ahz",
-                            "gx", "gy", "gz", "gg", "gr2")}
-    for c0 in range(0, len(s), unroll):
-        sl = slice(c0, c0 + unroll)
-        lo = lo_all[sl].amin(dim=0) - _AABB_PAD
-        hi = hi_all[sl].amax(dim=0) + _AABB_PAD
-        g = 0.5 * (lo + hi)
-        reach = torch.sqrt(((s.center[sl] - g) ** 2).sum(dim=-1)) + s.radius[sl]
-        for k, ax in enumerate("xyz"):
-            cols["al" + ax].append(lo[k])
-            cols["ah" + ax].append(hi[k])
-            cols["g" + ax].append(g[k])
-        cols["gg"].append(g[0] * g[0] + g[1] * g[1] + g[2] * g[2])
-        cols["gr2"].append((reach.amax() + _GATE_PAD) ** 2)
-    out = {n: torch.stack(v) if v else lo_all.new_zeros((0,)) for n, v in cols.items()}
-    if len(s):
+
+    def chunked(x, fill):
+        x = torch.cat([x, x.new_full((pad, *x.shape[1:]), fill)]) if pad else x
+        return x.reshape(n_c, unroll, *x.shape[1:])
+
+    lo = chunked(lo_all, float("inf")).amin(dim=1) - _AABB_PAD  # [n_c, 3]
+    hi = chunked(hi_all, float("-inf")).amax(dim=1) + _AABB_PAD
+    g = 0.5 * (lo + hi)
+    rel = chunked(s.center, 0.0) - g[:, None]
+    reach = torch.sqrt(rel[..., 0] ** 2 + rel[..., 1] ** 2 + rel[..., 2] ** 2)
+    reach = chunked(s.radius, float("-inf")) + reach
+    gr = reach.amax(dim=1)
+    out = {
+        "alx": lo[:, 0], "aly": lo[:, 1], "alz": lo[:, 2],
+        "ahx": hi[:, 0], "ahy": hi[:, 1], "ahz": hi[:, 2],
+        "gx": g[:, 0], "gy": g[:, 1], "gz": g[:, 2],
+        "gg": g[:, 0] * g[:, 0] + g[:, 1] * g[:, 1] + g[:, 2] * g[:, 2],
+        "gr2": (gr + _GATE_PAD) ** 2,
+        # Not packed: phase A's copies (cuda_level.phase_a), the chunk
+        # boxes and centers [3, n_c] and the unpadded bounding radius.
+        "c_lo": lo.t().contiguous(), "c_hi": hi.t().contiguous(),
+        "c_g": g.t().contiguous(), "gr": gr,
+    }
+    if n_s:
         lo, hi = lo_all.amin(dim=0) - _AABB_PAD, hi_all.amax(dim=0) + _AABB_PAD
     else:
         lo = hi = lo_all.new_zeros((3,))
@@ -250,16 +271,27 @@ def fused_tables(scene: Scene) -> FusedTables:
     return FusedTables(cols, packed, counts)
 
 
+def in_fused_class(tables: FusedTables, depth: int) -> bool:
+    """Whether the whole-trace kernels take this trace: at most
+    ``FUSED_MAX_CHUNKS`` sphere chunks, ``0 <= depth <= FUSED_MAX_DEPTH``,
+    and a table that fits the shared memory a block gets by default.
+    ``trace_soa`` sends everything else through the per-level chain
+    (ops/cuda_level.py)."""
+    return (tables.counts["n_c"] <= FUSED_MAX_CHUNKS and 0 <= depth <= FUSED_MAX_DEPTH
+            and tables.smem_bytes <= _SMEM_LIMIT)
+
+
 def check_fused_class(scene: Scene, depth: int) -> None:
-    """Raise ``NotImplementedError`` for work the kernel does not cover."""
-    n_s = len(scene.spheres)
-    n_chunks = -(-n_s // resolve_unroll(n_s)) if n_s else 0
-    if n_chunks > FUSED_MAX_CHUNKS or not 0 <= depth <= FUSED_MAX_DEPTH:
+    """Raise ``NotImplementedError`` for a trace outside the whole-trace
+    kernels' class (``in_fused_class``)."""
+    tables = fused_tables(scene)
+    if not in_fused_class(tables, depth):
         raise NotImplementedError(
-            f"{n_s} spheres ({n_chunks} chunks) at depth {depth} is outside "
-            f"the whole-trace kernel's class (<= {FUSED_MAX_CHUNKS} chunks, "
-            f"0 <= depth <= {FUSED_MAX_DEPTH}); larger scenes need the "
-            "per-level kernels, not ported yet (ROADMAP queue 2, kernels 3-5)"
+            f"{tables.counts['n_s']} spheres ({tables.counts['n_c']} chunks, a "
+            f"{tables.smem_bytes}-byte table) at depth {depth} is outside the "
+            f"whole-trace kernel's class (<= {FUSED_MAX_CHUNKS} chunks, 0 <= depth "
+            f"<= {FUSED_MAX_DEPTH}, <= {_SMEM_LIMIT} bytes); trace_soa runs such "
+            "scenes through the per-level kernels (ops/cuda_level.py)"
         )
 
 
@@ -276,10 +308,11 @@ def _srecip(c: torch.Tensor) -> torch.Tensor:
     )
 
 
-def _lexmin(ts: torch.Tensor, base: int):
+def _lexmin(ts: torch.Tensor, base):
     """(min t, lowest index among the minima) over a ``[n, ...]`` stack of
-    candidate t (``MISS_T`` where invalid), indices ``base + position``;
-    ``(MISS_T, -1)`` where nothing is valid."""
+    candidate t (``MISS_T`` where invalid), indices ``base + position``
+    (``base`` an int or a per-lane tensor); ``(MISS_T, -1)`` where nothing
+    is valid."""
     bt = ts.amin(dim=0)
     n = ts.shape[0]
     pos = torch.arange(n, dtype=torch.int32, device=ts.device).view(-1, *([1] * (ts.dim() - 1)))
@@ -287,16 +320,52 @@ def _lexmin(ts: torch.Tensor, base: int):
     return bt, torch.where(bt < MISS_T, bi, -1).to(torch.int32)
 
 
-def _fold(t: dict, counts: dict, o: V3, d: V3):
+def _slab_segment(t: dict, o: V3, iv):
+    """(t0, t_ex, seg_ok): each ray's live segment inside the slab of all
+    spheres, and whether it meets the slab at all."""
+    a = [((t[f"slab_lo_{x}"] - oc) * ivc, (t[f"slab_hi_{x}"] - oc) * ivc)
+         for x, oc, ivc in zip("xyz", o, iv)]
+    t0 = torch.clamp_min(torch.maximum(torch.maximum(
+        torch.minimum(*a[0]), torch.minimum(*a[1])), torch.minimum(*a[2])), 0.0)
+    t_ex = torch.minimum(torch.minimum(
+        torch.maximum(*a[0]), torch.maximum(*a[1])), torch.maximum(*a[2]))
+    return t0, t_ex, (t_ex >= t0) & (t_ex > 0.0)
+
+
+def _chunk_gate(t: dict, gate: int, c, o: V3, d: V3, iv, oo, do, t0, t1):
+    """Whether the segment [t0, t1] can reach chunk ``c`` (an int, or a
+    per-lane index tensor): its box (``GATE_AABB``) or its bounding sphere."""
+    if gate == GATE_AABB:
+        b = [((t[f"al{x}"][c] - oc) * ivc, (t[f"ah{x}"][c] - oc) * ivc)
+             for x, oc, ivc in zip("xyz", o, iv)]
+        tn = torch.maximum(torch.maximum(
+            torch.minimum(*b[0]), torch.minimum(*b[1])), torch.minimum(*b[2]))
+        tf = torch.minimum(torch.minimum(
+            torch.maximum(*b[0]), torch.maximum(*b[1])), torch.maximum(*b[2]))
+        return torch.maximum(tn, t0) <= torch.minimum(tf, t1)
+    gx, gy, gz = t["gx"][c], t["gy"][c], t["gz"][c]
+    s_g = d.x * gx + d.y * gy + d.z * gz
+    m_g = o.x * gx + o.y * gy + o.z * gz
+    tc = torch.minimum(torch.maximum(s_g - do, t0), t1)
+    dist2 = oo - 2.0 * m_g + t["gg"][c] + tc * (2.0 * (do - s_g) + tc)
+    return (t1 >= t0) & (dist2 <= t["gr2"][c])
+
+
+def _fold(t: dict, counts: dict, o: V3, d: V3, shortlist=None):
     """(best t, best global index) of every ray; ``(MISS_T, -1)`` on a miss.
 
-    The kernel folds walls, then boxes with a strict ``<``, then sphere
+    The kernels fold walls, then boxes with a strict ``<``, then sphere
     chunks with ties going to the lower global index: the lexicographic
     minimum of (t, index), which this computes over stacks of candidates.
-    Like the kernel, it folds a sphere chunk only where the chunk's gate
+    Like the kernels, it folds a sphere chunk only where the chunk's gate
     lets the lane through. For unit directions the gate never drops a hit
     the fold would keep; a direction that left unit length after a grazing
     bounce can meet a sphere outside the gate, and there the gate decides.
+
+    ``shortlist`` (the per-level chain) is ``(lists, n_list)``: each lane's
+    tile's chunk order ``[..., n_c]`` and its length ``[...]`` (-1 for a
+    dead tile); the lane walks those chunks in that order. Without it every
+    lane walks all chunks in index order, as the whole-trace kernel does.
     """
     ox, oy, oz = o
     dx, dy, dz = d
@@ -306,7 +375,8 @@ def _fold(t: dict, counts: dict, o: V3, d: V3):
     def col(name, sl=slice(None)):
         return t[name][sl].view(-1, *([1] * nd))
 
-    ivx, ivy, ivz = _srecip(dx), _srecip(dy), _srecip(dz)
+    iv = (_srecip(dx), _srecip(dy), _srecip(dz))
+    ivx, ivy, ivz = iv
     cands = []
     if n_w:
         nx, ny, nz = col("nx"), col("ny"), col("nz")
@@ -347,42 +417,37 @@ def _fold(t: dict, counts: dict, o: V3, d: V3):
 
     oo = ox * ox + oy * oy + oz * oz
     do = dx * ox + dy * oy + dz * oz
-    # The ray's live segment [t0, t_ex] inside the slab of all spheres.
-    a = [((t[f"slab_lo_{x}"] - oc) * iv, (t[f"slab_hi_{x}"] - oc) * iv)
-         for x, oc, iv in (("x", ox, ivx), ("y", oy, ivy), ("z", oz, ivz))]
-    t0 = torch.clamp_min(torch.maximum(torch.maximum(
-        torch.minimum(*a[0]), torch.minimum(*a[1])), torch.minimum(*a[2])), 0.0)
-    t_ex = torch.minimum(torch.minimum(
-        torch.maximum(*a[0]), torch.maximum(*a[1])), torch.maximum(*a[2]))
-    seg_ok = (t_ex >= t0) & (t_ex > 0.0)
+    t0, t_ex, seg_ok = _slab_segment(t, o, iv)
     unroll = counts["unroll"]
-    for c in range(counts["n_c"]):
+    if shortlist is not None:
+        lists, n_list = shortlist
+        pos = torch.arange(unroll, device=dx.device).view(-1, *([1] * nd))
+    for k in range(counts["n_c"]):
         t1 = torch.minimum(t_ex, bt)
-        if counts["gate"] == GATE_AABB:
-            b = [((t[f"al{x}"][c] - oc) * iv, (t[f"ah{x}"][c] - oc) * iv)
-                 for x, oc, iv in (("x", ox, ivx), ("y", oy, ivy), ("z", oz, ivz))]
-            tn = torch.maximum(torch.maximum(
-                torch.minimum(*b[0]), torch.minimum(*b[1])), torch.minimum(*b[2]))
-            tf = torch.minimum(torch.minimum(
-                torch.maximum(*b[0]), torch.maximum(*b[1])), torch.maximum(*b[2]))
-            reach = torch.maximum(tn, t0) <= torch.minimum(tf, t1)
+        if shortlist is None:
+            c, listed = k, seg_ok
+            sl = slice(k * unroll, min((k + 1) * unroll, n_s))
+            cx, cy, cz, cr2 = col("cx", sl), col("cy", sl), col("cz", sl), col("cr2", sl)
+            base, real = sl.start, None
         else:
-            gx, gy, gz = t["gx"][c], t["gy"][c], t["gz"][c]
-            s_g = dx * gx + dy * gy + dz * gz
-            m_g = ox * gx + oy * gy + oz * gz
-            tc = torch.minimum(torch.maximum(s_g - do, t0), t1)
-            dist2 = oo - 2.0 * m_g + t["gg"][c] + tc * (2.0 * (do - s_g) + tc)
-            reach = (t1 >= t0) & (dist2 <= t["gr2"][c])
-        sl = slice(c * unroll, min((c + 1) * unroll, n_s))
-        cx, cy, cz = col("cx", sl), col("cy", sl), col("cz", sl)
+            c, listed = lists[..., k], seg_ok & (k < n_list)
+            gi = c * unroll + pos  # [unroll, ...] global sphere indices
+            real = gi < n_s
+            gi = gi.clamp_max(n_s - 1)
+            cx, cy, cz, cr2 = (t[n][gi] for n in ("cx", "cy", "cz", "cr2"))
+            base = c * unroll
+        reach = _chunk_gate(t, counts["gate"], c, o, d, iv, oo, do, t0, t1)
         s = dx * cx + dy * cy + dz * cz
         m = ox * cx + oy * cy + oz * cz
         b_half = do - s
-        c_full = oo - 2.0 * m + col("cr2", sl)
+        c_full = oo - 2.0 * m + cr2
         disc = b_half * b_half - c_full
         tt = -b_half - torch.sqrt(disc)  # NaN on a miss: fails the compare
-        ct, ci = _lexmin(torch.where((tt > 0.0) & (tt < MISS_T), tt, MISS_T), sl.start)
-        win = seg_ok & reach & (ci >= 0) & ((ct < bt) | ((ct == bt) & (ci < bi)))
+        ok = (tt > 0.0) & (tt < MISS_T)
+        if real is not None:
+            ok = ok & real
+        ct, ci = _lexmin(torch.where(ok, tt, MISS_T), base)
+        win = listed & reach & (ci >= 0) & ((ct < bt) | ((ct == bt) & (ci < bi)))
         bt, bi = torch.where(win, ct, bt), torch.where(win, ci, bi)
     return bt, bi
 
@@ -444,13 +509,14 @@ def _kinds(bi: torch.Tensor, hit: torch.Tensor, counts: dict):
     return hit & (bi < wb), hit & (bi >= wb) & (bi < bb), hit & (bi >= bb)
 
 
-def _level(t: dict, counts: dict, o: V3, d: V3, w, is_last: bool):
-    """One level at fixed rays: fold, regather, then ``_level_math``.
+def _level(t: dict, counts: dict, o: V3, d: V3, w, is_last: bool, shortlist=None):
+    """One level at fixed rays: fold (over ``shortlist``, see ``_fold``),
+    regather, then ``_level_math``.
 
     Returns ``(t_out, index, increment V3, w_next, o_next, d_next)`` for
     every lane, alive or not; the caller masks the dead ones.
     """
-    bt, bi = _fold(t, counts, o, d)
+    bt, bi = _fold(t, counts, o, d, shortlist)
     hit = bt < MISS_T
     acc = _gather(_attr_columns(t, counts), bi, hit)
     t_out, inc, w_next, o_next, d_next = _level_math(
@@ -641,59 +707,78 @@ class Residuals:
         return V3(r[0], r[1], r[2]), V3(r[3], r[4], r[5]), r[6]
 
 
+def trace_level_bwd_reference(tables: FusedTables, attrs: torch.Tensor, ls: torch.Tensor,
+                              o: V3, d: V3, w: torch.Tensor, t_k: torch.Tensor,
+                              i_k: torch.Tensor, ct_acc: V3, ct_next, is_last: bool,
+                              sums: tuple):
+    """The backward of one level at fixed selections, the plain version of
+    ``cuda_level.trace_level_bwd`` (csrc/trace_level_bwd.cu) and one level
+    of ``trace_whole_bwd_reference``: the cotangents of the level's input
+    rays and throughput, ``[ct_o xyz, ct_d xyz, ct_w]``.
+
+    It regathers each alive lane's winner from ``attrs`` by the saved index
+    ``i_k``, replays ``_level_math`` from the level's input rays (o, d),
+    throughput ``w`` and saved t ``t_k`` with autograd, and takes the
+    gradient of the image cotangent ``ct_acc`` plus ``ct_next``, the
+    cotangents of the level's outputs (the next rays and throughput, in the
+    same order; ``None`` after the last level). Lanes with ``w == 0`` are
+    dead there: their cotangents pass through and they add nothing. The
+    cotangents of ``attrs`` and ``ls`` are added into ``sums``, a pair of
+    float64 tensors of their shapes (one ``index_add_``, so the rounding
+    does not grow with the number of lanes that hit one primitive).
+    """
+    counts = tables.counts
+    ct7 = list(ct_next) if ct_next is not None else [torch.zeros_like(w) for _ in range(7)]
+    alive = w > 0.0
+    if not bool(alive.any()):
+        return ct7
+    attrs = attrs.detach()
+    ls = ls.detach().requires_grad_(True)
+    i_a = i_k[alive]
+    hit = i_a >= 0
+    gi = i_a.clamp_min(0).long()
+    with torch.enable_grad():
+        rays = [c[alive].detach().requires_grad_(True) for c in (*o, *d, w)]
+        rows = attrs[gi] if attrs.shape[0] else attrs.new_zeros((gi.numel(), 14))
+        rows.requires_grad_(True)
+        acc = [torch.where(hit, col, 0.0) for col in rows.unbind(1)]
+        _, inc, w_next, o_next, d_next = _level_math(
+            acc, V3(*rays[:3]), V3(*rays[3:6]), rays[6], t_k[alive],
+            hit, *_kinds(i_a, hit, counts), ls, counts, is_last,
+        )
+        outs = (*inc, w_next, *o_next, *d_next)
+        cts = (*(c[alive] for c in ct_acc), *(c[alive] for c in (ct7[6], *ct7[:6])))
+        grads = torch.autograd.grad(outs, (*rays, rows, ls), cts, allow_unused=True)
+    for j in range(7):
+        ct7[j] = ct7[j].masked_scatter(alive, grads[j])
+    if grads[7] is not None and attrs.shape[0]:
+        sums[0].index_add_(0, gi[hit], grads[7][hit].double())
+    if grads[8] is not None:
+        sums[1].add_(grads[8].double())
+    return ct7
+
+
 def trace_whole_bwd_reference(tables: FusedTables, attrs: torch.Tensor,
                               ls: torch.Tensor, levels: Residuals,
                               ct_acc: V3, depth: int):
     """Plain PyTorch version of ``trace_whole_bwd``: the cotangents of
     ``trace_whole``'s rgb with respect to its inputs at fixed selections.
 
-    For k = depth..0 it regathers each alive lane's winner from ``attrs``
-    by the saved index, replays ``_level_math`` from the saved rays,
-    throughput and t with autograd, and takes the gradient of the image
-    cotangent ``ct_acc`` plus the cotangents carried from level k+1. Lanes
-    with ``w == 0`` at a level are dead there: their cotangents pass
-    through unchanged and they add nothing. ``attrs`` and ``ls`` are
-    ``attribute_tables``' values for the scene of ``tables``.
-
-    The table cotangents are summed over lanes in float64 (one
-    ``index_add_`` per level), so their rounding does not grow with the
-    number of lanes that hit one primitive.
+    ``trace_level_bwd_reference`` for k = depth..0, each level's ray and
+    throughput cotangents feeding level k-1's; the table cotangents are
+    summed in float64. ``attrs`` and ``ls`` are ``attribute_tables``'
+    values for the scene of ``tables``.
 
     Returns ``(ct_o V3, ct_d V3, ct_w, ct_attrs f32[n_prim, 14], ct_ls)``.
     """
-    counts = tables.counts
-    attrs = attrs.detach()
-    ls = ls.detach().requires_grad_(True)
-    ct7 = [torch.zeros_like(levels.w) for _ in range(7)]  # d(next o3, d3, w)
-    ct_attrs = torch.zeros(attrs.shape, dtype=torch.float64, device=attrs.device)
-    ct_ls = torch.zeros(ls.shape, dtype=torch.float64, device=ls.device)
+    sums = (torch.zeros(attrs.shape, dtype=torch.float64, device=attrs.device),
+            torch.zeros(ls.shape, dtype=torch.float64, device=ls.device))
+    ct7 = None
     for k in reversed(range(depth + 1)):
         o, d, w = levels.level(k)
-        alive = w > 0.0
-        if not bool(alive.any()):
-            continue
-        i_k = levels.i[k][alive]
-        hit = i_k >= 0
-        gi = i_k.clamp_min(0).long()
-        with torch.enable_grad():
-            rays = [c[alive].detach().requires_grad_(True) for c in (*o, *d, w)]
-            rows = attrs[gi] if attrs.shape[0] else attrs.new_zeros((gi.numel(), 14))
-            rows.requires_grad_(True)
-            acc = [torch.where(hit, col, 0.0) for col in rows.unbind(1)]
-            _, inc, w_next, o_next, d_next = _level_math(
-                acc, V3(*rays[:3]), V3(*rays[3:6]), rays[6], levels.t[k][alive],
-                hit, *_kinds(i_k, hit, counts), ls, counts, k == depth,
-            )
-            outs = (*inc, w_next, *o_next, *d_next)
-            cts = (*(c[alive] for c in ct_acc), *(c[alive] for c in (ct7[6], *ct7[:6])))
-            grads = torch.autograd.grad(outs, (*rays, rows, ls), cts, allow_unused=True)
-        for j in range(7):
-            ct7[j] = ct7[j].masked_scatter(alive, grads[j])
-        if grads[7] is not None and attrs.shape[0]:
-            ct_attrs.index_add_(0, gi[hit], grads[7][hit].double())
-        if grads[8] is not None:
-            ct_ls += grads[8].double()
-    return V3(*ct7[:3]), V3(*ct7[3:6]), ct7[6], ct_attrs.float(), ct_ls.float()
+        ct7 = trace_level_bwd_reference(tables, attrs, ls, o, d, w, levels.t[k],
+                                        levels.i[k], ct_acc, ct7, k == depth, sums)
+    return V3(*ct7[:3]), V3(*ct7[3:6]), ct7[6], sums[0].float(), sums[1].float()
 
 
 # ---------------------------------------------------------------------------
@@ -715,18 +800,26 @@ def _check_planes(planes, shape, device, name="trace_whole", dtype=torch.float32
             )
 
 
-def _check_kernel_class(tables: FusedTables, depth: int, dev, name: str):
-    """What both kernels need of the scene table and the depth on CUDA."""
+def _check_table(tables: FusedTables, depth: int, dev, name: str):
+    """What every kernel needs of the scene table and the depth on CUDA."""
     if dev.type != "cuda":
         raise ValueError(f"{name} runs on CPU or CUDA tensors, got {dev}")
     if tables.packed.device != dev or not tables.packed.is_contiguous():
         raise ValueError("the packed scene table must be contiguous on the rays' device")
-    if not 0 <= depth <= FUSED_MAX_DEPTH:
-        raise ValueError(f"depth {depth} is outside 0..{FUSED_MAX_DEPTH}")
-    if tables.counts["n_c"] > FUSED_MAX_CHUNKS or tables.smem_bytes > _SMEM_LIMIT:
+    if depth < 0:
+        raise ValueError(f"depth {depth} is negative")
+
+
+def _check_kernel_class(tables: FusedTables, depth: int, dev, name: str):
+    """What both whole-trace kernels need on CUDA: the whole table fits the
+    shared memory a block gets by default (they copy it there). Any chunk
+    count and depth run; ``in_fused_class`` is where ``trace_soa`` sends
+    them."""
+    _check_table(tables, depth, dev, name)
+    if tables.smem_bytes > _SMEM_LIMIT:
         raise ValueError(
-            f"scene tables ({tables.counts['n_c']} chunks, "
-            f"{tables.smem_bytes} bytes) exceed the kernel's class"
+            f"scene tables ({tables.smem_bytes} bytes) exceed the "
+            f"{_SMEM_LIMIT} bytes of shared memory {name} copies them into"
         )
 
 
@@ -843,6 +936,7 @@ _BWD_BLOCK = 256
 _BWD_BLOCKS_PER_SM = 8
 
 
+@functools.lru_cache(maxsize=None)
 def _sm_count(dev) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 

@@ -12,7 +12,8 @@ _LUMA = (0.2126, 0.7152, 0.0722)
 
 def reinhard_tonemap(rgb: torch.Tensor) -> torch.Tensor:
     """Reinhard global operator ``c / (1 + luma(c))`` on ``[..., 3]``
-    radiance: maps [0, inf) into [0, 1) while keeping the hue."""
+    radiance: maps luma from [0, inf) into [0, 1) while keeping the hue (a
+    very bright, strongly coloured pixel can exceed 1 in one channel)."""
     luma = (
         _LUMA[0] * rgb[..., 0] + _LUMA[1] * rgb[..., 1] + _LUMA[2] * rgb[..., 2]
     )[..., None]

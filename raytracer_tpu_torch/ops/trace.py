@@ -1,11 +1,16 @@
 """Ray generation and the bounce-loop dispatcher.
 
-``trace_soa`` runs every bounce level of a ray tile in one call:
-``trace_whole`` (the CUDA kernel) for CUDA tensors, ``trace_whole_reference``
-(its plain PyTorch version) for CPU tensors. When gradients are wanted it
-goes through ``_WholeTrace``, whose backward is ``trace_whole_bwd`` (the
-backward kernel, or its plain version on the CPU). Every per-ray quantity is
-a component plane in image layout ``[rows, W]`` (see core/v3.py).
+``trace_soa`` runs every bounce level of a ray tile in one call. Scenes of
+the whole-trace kernels' class (``cuda_fold.in_fused_class``: at most 24
+sphere chunks, depth at most 10, a table that fits 48 KB) go to
+``trace_whole``, one CUDA kernel for all levels; every other scene (the
+1024-sphere grid, deeper traces) goes to ``cuda_level.trace_levels``, the
+per-level chain (a stats kernel, then one kernel per level). CPU tensors run
+the kernels' plain PyTorch versions on the same routes. When gradients are
+wanted the trace goes through ``_WholeTrace`` or ``_LevelTrace``, whose
+backwards are the backward kernels (or their plain versions on the CPU).
+Every per-ray quantity is a component plane in image layout ``[rows, W]``
+(see core/v3.py).
 """
 
 from __future__ import annotations
@@ -72,6 +77,28 @@ def _wall_tables(walls) -> dict:
     }
 
 
+def _trace_forward(ctx, fwd, tables, depth, attrs, ls, ox, oy, oz, dx, dy, dz):
+    """The training forward of either route: ``fwd`` (``trace_whole`` or
+    ``trace_levels``) with residuals, whose selections and per-level inputs
+    are saved for the backward."""
+    o, d = V3(ox, oy, oz), V3(dx, dy, dz)
+    w = torch.ones_like(dx)
+    rgb, t, i, res = fwd(tables, o, d, w, depth, emit_res=True)
+    ctx.tables, ctx.depth = tables, depth
+    ctx.save_for_backward(attrs, ls, ox, oy, oz, dx, dy, dz, w, t, i, res)
+    return tuple(rgb)
+
+
+def _trace_backward(ctx, bwd, ct_r, ct_g, ct_b):
+    from raytracer_tpu_torch.ops import cuda_fold
+
+    attrs, ls, ox, oy, oz, dx, dy, dz, w, t, i, res = ctx.saved_tensors
+    levels = cuda_fold.Residuals(V3(ox, oy, oz), V3(dx, dy, dz), w, t, i, res)
+    ct = V3(*(c.contiguous() for c in (ct_r, ct_g, ct_b)))
+    ct_o, ct_d, _, ct_attrs, ct_ls = bwd(ctx.tables, attrs, ls, levels, ct, ctx.depth)
+    return None, None, ct_attrs, ct_ls, *ct_o, *ct_d
+
+
 class _WholeTrace(torch.autograd.Function):
     """``trace_whole`` with ``trace_whole_bwd`` as its backward.
 
@@ -89,25 +116,37 @@ class _WholeTrace(torch.autograd.Function):
     def forward(ctx, tables, depth, attrs, ls, ox, oy, oz, dx, dy, dz):
         from raytracer_tpu_torch.ops import cuda_fold
 
-        o, d = V3(ox, oy, oz), V3(dx, dy, dz)
-        w = torch.ones_like(dx)
-        rgb, t, i, res = cuda_fold.trace_whole(tables, o, d, w, depth, emit_res=True)
-        ctx.tables, ctx.depth = tables, depth
-        ctx.save_for_backward(attrs, ls, ox, oy, oz, dx, dy, dz, w, t, i, res)
-        return tuple(rgb)
+        return _trace_forward(ctx, cuda_fold.trace_whole, tables, depth, attrs, ls,
+                              ox, oy, oz, dx, dy, dz)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, ct_r, ct_g, ct_b):
         from raytracer_tpu_torch.ops import cuda_fold
 
-        attrs, ls, ox, oy, oz, dx, dy, dz, w, t, i, res = ctx.saved_tensors
-        levels = cuda_fold.Residuals(V3(ox, oy, oz), V3(dx, dy, dz), w, t, i, res)
-        ct = V3(*(c.contiguous() for c in (ct_r, ct_g, ct_b)))
-        ct_o, ct_d, _, ct_attrs, ct_ls = cuda_fold.trace_whole_bwd(
-            ctx.tables, attrs, ls, levels, ct, ctx.depth
-        )
-        return None, None, ct_attrs, ct_ls, *ct_o, *ct_d
+        return _trace_backward(ctx, cuda_fold.trace_whole_bwd, ct_r, ct_g, ct_b)
+
+
+class _LevelTrace(torch.autograd.Function):
+    """``cuda_level.trace_levels`` with ``trace_levels_bwd`` as its
+    backward: ``_WholeTrace`` for the per-level route. The forward chain
+    keeps each level's input rays and throughput (its own outputs) and
+    selections; the backward launches the per-level backward kernel for
+    k = depth..0."""
+
+    @staticmethod
+    def forward(ctx, tables, depth, attrs, ls, ox, oy, oz, dx, dy, dz):
+        from raytracer_tpu_torch.ops import cuda_level
+
+        return _trace_forward(ctx, cuda_level.trace_levels, tables, depth, attrs, ls,
+                              ox, oy, oz, dx, dy, dz)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, ct_r, ct_g, ct_b):
+        from raytracer_tpu_torch.ops import cuda_level
+
+        return _trace_backward(ctx, cuda_level.trace_levels_bwd, ct_r, ct_g, ct_b)
 
 
 def trace_soa(scene: Scene, o: V3, d: V3, *, depth: int = 3) -> V3:
@@ -115,28 +154,31 @@ def trace_soa(scene: Scene, o: V3, d: V3, *, depth: int = 3) -> V3:
 
     Each level adds ``w * (1 - metallic) * local`` on hits (the full
     ``local`` on the last level) or ``w * sky`` on misses, then reflects.
-    All levels run in ``trace_whole``: its plain PyTorch version on CPU
-    tensors (any scene, any depth), the CUDA kernel on CUDA tensors. The
-    kernel covers scenes of at most ``FUSED_MAX_CHUNKS`` sphere chunks at
-    ``0 <= depth <= FUSED_MAX_DEPTH``; outside that class a CUDA call
-    raises. When grad is enabled and a scene leaf or a ray requires it, the
-    trace runs through ``_WholeTrace`` and is differentiable in every scene
-    leaf the shading reads and in the rays.
+    Scenes of the whole-trace class (``cuda_fold.in_fused_class``) run in
+    ``trace_whole``, all others in the per-level chain
+    ``cuda_level.trace_levels``; CUDA tensors launch the kernels, CPU
+    tensors run their plain PyTorch versions. When grad is enabled and a
+    scene leaf or a ray requires it, the trace runs through ``_WholeTrace``
+    or ``_LevelTrace`` and is differentiable in every scene leaf the
+    shading reads and in the rays.
     """
-    from raytracer_tpu_torch.ops import cuda_fold
+    from raytracer_tpu_torch.ops import cuda_fold, cuda_level
 
+    if depth < 0:
+        raise ValueError(f"depth {depth} is negative")
     shape = torch.broadcast_shapes(*(c.shape for c in (*o, *d)))
     o, d = o.broadcast_to(shape), d.broadcast_to(shape)
-    if d.x.device.type != "cpu":
-        cuda_fold.check_fused_class(scene, depth)
     tables = cuda_fold.fused_tables(scene)
+    fused = cuda_fold.in_fused_class(tables, depth)
     if torch.is_grad_enabled() and any(
         t.requires_grad for t in (*scene.tensors(), *o, *d)
     ):
         attrs, ls = cuda_fold.attribute_tables(scene)
-        return V3(*_WholeTrace.apply(tables, depth, attrs, ls, *o, *d))
+        fn = _WholeTrace if fused else _LevelTrace
+        return V3(*fn.apply(tables, depth, attrs, ls, *o, *d))
     w = torch.ones(shape, dtype=torch.float32, device=d.x.device)
-    acc, _, _ = cuda_fold.trace_whole(tables, o, d, w, depth)
+    trace = cuda_fold.trace_whole if fused else cuda_level.trace_levels
+    acc, _, _ = trace(tables, o, d, w, depth)
     return acc
 
 

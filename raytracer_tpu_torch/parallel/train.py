@@ -65,12 +65,16 @@ def make_fit_step(
     tonemap: bool = True,
     device=None,
     soft: bool = False,
+    optimizer: Callable[[dict], torch.optim.Optimizer] | None = None,
 ) -> tuple[Callable, Callable]:
     """Build ``(init_fn, step_fn)`` for the differentiable fit.
 
     ``init_fn(scene) -> FitState`` copies ``default_params(scene)`` into
-    leaves that require grad, with a ``torch.optim.Adam`` at
-    ``learning_rate`` and optax's defaults (betas 0.9 and 0.999, eps 1e-8).
+    leaves that require grad, with ``optimizer(params)`` (the counterpart of
+    the JAX package's ``optimizer`` option: a function of the parameter
+    dict, e.g. for a learning rate per parameter), by default a
+    ``torch.optim.Adam`` at ``learning_rate`` and optax's defaults (betas
+    0.9 and 0.999, eps 1e-8).
     ``step_fn(state, scene, camera, target) -> (state, loss)`` renders
     ``merge_params(scene, params)`` at ``width`` x ``height`` and ``depth``,
     takes the MSE against ``target`` (``[H, W, 3]``), and does one backward
@@ -92,9 +96,12 @@ def make_fit_step(
             k: v.detach().clone().requires_grad_(True)
             for k, v in default_params(scene).items()
         }
-        opt = torch.optim.Adam(
-            list(params.values()), lr=learning_rate, betas=(0.9, 0.999), eps=1e-8
-        )
+        if optimizer is not None:
+            opt = optimizer(params)
+        else:
+            opt = torch.optim.Adam(
+                list(params.values()), lr=learning_rate, betas=(0.9, 0.999), eps=1e-8
+            )
         return FitState(params=params, optimizer=opt, step=0)
 
     def step_fn(state: FitState, scene: Scene, camera: Camera,

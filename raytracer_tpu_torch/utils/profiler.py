@@ -190,17 +190,19 @@ def benchmark_fit_step(
     depth: int = 1,
     soft: bool = False,
     iters: int = 10,
+    optimizer=None,
 ) -> dict:
     """Time of one ``make_fit_step`` step (render with gradients, backward,
-    Adam update) on the card: the median over ``iters`` steps of the CUDA
-    event time from just before the step, with nothing queued ahead, to the
-    end of its last device op, fitting ``scene`` to a black image."""
+    optimizer update; ``optimizer`` as ``make_fit_step`` takes it) on the
+    card: the median over ``iters`` steps of the CUDA event time from just
+    before the step, with nothing queued ahead, to the end of its last
+    device op, fitting ``scene`` to a black image."""
     from raytracer_tpu_torch.parallel.train import make_fit_step
 
     _need_cuda()
     scene, camera = scene.to("cuda"), camera.to("cuda")
     target = torch.zeros((height, width, 3), dtype=torch.float32, device="cuda")
-    init_fn, step_fn = make_fit_step(width, height, depth=depth, soft=soft)
+    init_fn, step_fn = make_fit_step(width, height, depth=depth, soft=soft, optimizer=optimizer)
     state = init_fn(scene)
     state, _ = step_fn(state, scene, camera, target)
     times = []

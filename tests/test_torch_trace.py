@@ -226,8 +226,9 @@ def test_fused_class_and_table_layout():
     assert cuda_fold.resolve_gate_geom(64, 16) == cuda_fold.GATE_AABB
     assert cuda_fold.resolve_gate_geom(1, 1) == cuda_fold.GATE_SPHERE
     cuda_fold.check_fused_class(tscenes.grid_sphere_scene(64, device="cpu"), 10)
+    cuda_fold.check_fused_class(tscenes.grid_sphere_scene(768, device="cpu"), 3)
     with pytest.raises(NotImplementedError, match="per-level"):
-        cuda_fold.check_fused_class(tscenes.grid_sphere_scene(65, device="cpu"), 3)
+        cuda_fold.check_fused_class(tscenes.grid_sphere_scene(1024, device="cpu"), 3)
     with pytest.raises(NotImplementedError):
         cuda_fold.check_fused_class(tscenes.sprint3_scene(device="cpu"), 11)
     tables = cuda_fold.fused_tables(tscenes.mixed_primitive_scene(device="cpu"))
