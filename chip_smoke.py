@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases, one line each: the card's name and power limit; the build of the
-five kernels from csrc/ (one nvcc each, started together); the whole-trace
+seven kernels from csrc/ (one nvcc each, started together); the whole-trace
 kernels against their plain PyTorch versions on their five workloads (the
 forward with and without its residual planes, the backward on the forward's
 residuals); the per-level kernels (ray_stats, trace_level,
@@ -14,10 +14,16 @@ sweep of tile shapes and the whole-vs-per-level times; the small-scene
 render path (``render`` of sprint3 at 1920x1080, depth 3) and its training
 path (10 ``make_fit_step`` steps); the large-scene render path (``render``
 of grid-1024 at 1920x1080, depth 3, and at 3840x2160, depth 4) and its
-training path (5 steps at 1920x1080, depth 3), each path with the kernel
-launch counts set to 0 just before it and read just after; the frame, fit
-step and forward/backward times and breakdowns; a profile of one frame; the
-guards; a ``kernels`` JSON line. The last line is ``{"ok": true, "device":
+training path (5 steps at 1920x1080, depth 3); the soft kernels
+(soft_level, soft_level_bwd) against their plain versions on seven
+workloads, level by level, the residual planes and the backward included;
+the soft render path (``render_soft`` of BASELINE c4, grid-64 at 1920x1080,
+depth 1) and its training path (20 ``make_fit_step(soft=True)`` steps from
+moved centres, the loss and the centre error falling), each path with the
+kernel launch counts set to 0 just before it and read just after; the
+frame, fit step (soft: c4, grid-1024, grid-2048) and forward/backward
+times and breakdowns; a profile of one frame; the guards; a ``kernels``
+JSON line. The last line is ``{"ok": true, "device":
 {...}}``. Any failed check ends the run with a non-zero exit code and no
 result line. Without CUDA, or without the package beside it, it exits
 non-zero at once.
@@ -64,6 +70,33 @@ LEVEL_CASES = (
 )
 # Tile shapes (rows, cols) of the per-level kernels' sweep: one block each.
 TILES = ((8, 32), (16, 16), (4, 64), (2, 128))
+
+# The soft kernels' workloads, each at depth 1 (two levels), tau 0.01 and
+# tau_z 0.05 (make_fit_step's defaults). The first is the main path's shape:
+# BASELINE config c4 (app/config.py: grid-64 at 1920x1080, depth 1, a fit).
+# Then walls and a sun (sprint3), boxes (the mixed scene), the single-chunk
+# sphere gate (grid-4), a ragged frame (333x111), and the two large soft fits'
+# scenes (bench.py: grid-1024 and grid-2048) at a quarter of 1080p each way:
+# the plain versions run every chunk for every lane and are slow there.
+SOFT_CASES = (
+    ("c4_grid64_1920x1080_d1", ("grid_sphere_scene", (64,)), 1920, 1080),
+    ("sprint3_1920x1080_d1", ("sprint3_scene", ()), 1920, 1080),
+    ("mixed_256x128_d1", ("mixed_primitive_scene", ()), 256, 128),
+    ("grid4_640x360_d1", ("grid_sphere_scene", (4,)), 640, 360),
+    ("grid64_333x111_d1", ("grid_sphere_scene", (64,)), 333, 111),
+    ("grid1024_480x270_d1", ("grid_sphere_scene", (1024,)), 480, 270),
+    ("grid2048_480x270_d1", ("grid_sphere_scene", (2048,)), 480, 270),
+)
+SOFT_TAU, SOFT_TAU_Z = 0.01, 0.05
+# Tolerance of the soft backward kernel against its plain version: each
+# cotangent plane within 1e-4 of its largest entry, each table array within
+# 1e-3 of its largest entry. The kernel takes the same derivatives by hand,
+# rounded in another order than autograd's (a lane's terms differ in their
+# last bits), and its warp and block sums run in another order; a table
+# entry sums such terms of both signs over every lane (0.5 M at 1080p), and
+# where they cancel, the float32 rounding of the terms shows at ~1e-4 of
+# the array's largest entry (grid-1024 at 480x270: 1.14e-4 on the H100, PERF.md).
+SOFT_BWD_TOL, SOFT_TABLE_TOL = 1e-4, 1e-3
 
 
 def trace_whole_ops(counts: dict, idx: np.ndarray, alive: np.ndarray) -> float:
@@ -736,9 +769,12 @@ def drive_main_path(device, width: int = 1920, height: int = 1080, depth: int = 
 def _counted():
     from raytracer_tpu_torch.ops import cuda_fold, cuda_level
 
+    from raytracer_tpu_torch.ops import cuda_soft
+
     return {"trace_whole": cuda_fold.trace_whole, "trace_whole_bwd": cuda_fold.trace_whole_bwd,
             "ray_stats": cuda_level.ray_stats, "trace_level": cuda_level.trace_level,
-            "trace_level_bwd": cuda_level.trace_level_bwd}
+            "trace_level_bwd": cuda_level.trace_level_bwd,
+            "soft_level": cuda_soft.soft_level, "soft_level_bwd": cuda_soft.soft_level_bwd}
 
 
 def reset_launches():
@@ -1140,10 +1176,16 @@ def profile_frame(device) -> dict:
     init_fn, step_fn = make_fit_step(1920, 1080, depth=3, device=device,
                                      optimizer=level_fit_optimizer)
     state = init_fn(start)
-    work = {
+    return profile_work({
         "render": lambda: render(scene, camera, 1920, 1080, depth=3, device=device),
         "fit_step": lambda: step_fn(state, start, camera, target),
-    }
+    })
+
+
+def profile_work(work: dict) -> dict:
+    """``torch.profiler`` over one call of each of ``work``'s functions (after
+    one untimed call): each kernel's summed device time and the idle share,
+    as ``profile_frame`` reports them."""
     out = {}
     for name, fn in work.items():
         fn()
@@ -1171,6 +1213,329 @@ def profile_frame(device) -> dict:
                          idle_share=max(0.0, 1.0 - busy / wall) if wall else None,
                          top=[(k[:60], round(ms, 4), c) for k, ms, c in rows[:8]])
     return out
+
+
+# ---------------------------------------------------------------------------
+# The soft renderer: soft_level and soft_level_bwd (kernels 6-7)
+# ---------------------------------------------------------------------------
+
+
+def soft_level_ops(counts: dict, reached: int, n: int, is_last: bool) -> float:
+    """Float32 operations of one ``soft_level`` launch on this run's data,
+    reckoned from csrc/soft_common.cuh (each add, mul, div, sqrt, rsqrt, exp,
+    log, log1p, min, max and compare counts one): per lane every chunk's
+    gate in both passes, every wall and box (its hit twice, its shading and
+    its contribution) and the tail (~88); per reached (lane, chunk) pair the
+    8 spheres' hit for t_ref (58) and again with the shading (6 + 66 per
+    point light + 53 per sun) and the contribution (37; 17 at the last
+    level)."""
+    shade = 6 + 66 * counts["n_pt"] + 53 * counts["n_sun"]
+    contrib = 17 if is_last else 37
+    gate = 26 if counts["gate"] == 0 else 24
+    wall = 71 + 68 + shade + contrib
+    box = 70 + 67 + shade + contrib
+    per_lane = 2 * gate * counts["n_chunks"] + counts["n_w"] * wall + counts["n_b"] * box + 88
+    return float(per_lane) * n + 8.0 * (58 + 55 + shade + contrib) * reached
+
+
+def soft_level_bwd_ops(counts: dict, reached: int, n: int, is_last: bool) -> float:
+    """Float32 operations of one ``soft_level_bwd`` launch, reckoned as
+    ``soft_level_ops`` is: per lane the gates once, the tail and its adjoint
+    (~170), every wall and box's contribution again and its adjoint; per
+    reached (lane, chunk) pair 8 spheres, each its hit (55), its shading
+    twice (the colour, then the light sums again in the adjoint), the
+    lights' adjoint (9 + 130 per point light + 100 per sun), the
+    contribution's adjoint (60; 30 at the last level) and the hit's (65),
+    and the 12 warp-summed cotangents."""
+    n_pt, n_sun = counts["n_pt"], counts["n_sun"]
+    shade = 6 + 66 * n_pt + 53 * n_sun
+    adj = 9 + 130 * n_pt + 100 * n_sun
+    cb = 30 if is_last else 60
+    gate = 26 if counts["gate"] == 0 else 24
+    wall = 68 + 2 * shade + adj + cb + 80 + 23
+    box = 67 + 2 * shade + adj + cb + 75 + 14
+    per_lane = gate * counts["n_chunks"] + 170 + counts["n_w"] * wall + counts["n_b"] * box
+    return float(per_lane) * n + 8.0 * (55 + 2 * shade + adj + cb + 65 + 12) * reached
+
+
+def soft_reached(tables, gates, o, d) -> int:
+    """(lane, chunk) pairs whose gate passes: the chunks the kernels run."""
+    from raytracer_tpu_torch.ops import cuda_soft
+
+    c = tables.counts
+    return sum(int(cuda_soft.chunk_reachable(gates, c["gate"], k, o, d, SOFT_TAU).sum())
+               for k in range(c["n_chunks"]))
+
+
+def soft_bound(ops: float, planes: int, n: int):
+    """(bound ms, bound_by) of a launch: its operations at the float32 peak
+    against its planes read and written once at the memory rate."""
+    t_ops, t_bytes = ops / PEAK_F32_S * 1e3, 4.0 * planes * n / PEAK_BYTES_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _planes_of(out) -> list:
+    return [p for x in out if x is not None for p in (x if isinstance(x, tuple) else (x,))]
+
+
+def check_soft(case, device) -> dict:
+    """``soft_level`` (gated) against ``soft_level_reference`` (every chunk
+    for every lane) level by level on the same inputs, the residual planes
+    included, then ``soft_level_bwd`` against ``soft_level_bwd_reference``
+    level by level from a seeded image cotangent, each given the plain
+    version's cotangents of its outputs; each kernel and plain version
+    timed on its level's inputs (CUDA events)."""
+    from raytracer_tpu_torch.core.v3 import V3
+    from raytracer_tpu_torch.ops import cuda_soft
+
+    name, spec, width, height = case
+    scene = make_scene(spec, device)
+    o, d, w = frame_rays(width, height, device)
+    n = w.numel()
+    with torch.no_grad():
+        tables = cuda_soft.soft_tables(scene, SOFT_TAU, SOFT_TAU_Z)
+    gates = cuda_soft.soft_gate_tables(scene, SOFT_TAU)
+    counts = tables.counts
+    acc = V3(*(torch.zeros_like(w) for _ in range(3)))
+    r = dict(name=name, n_s=counts["n_s"], fwd_err=[], fwd_rel=[], fwd_identical=[],
+             ms=[], ms_res=[], plain_ms=[], bound_ms=[], bound_by=[], reached=[],
+             bwd_rel=[], bwd_ms=[], bwd_plain_ms=[], bwd_bound_ms=[], bwd_bound_by=[])
+    levels = []
+    with torch.no_grad():
+        for k in range(2):
+            last = k == 1
+            got = _planes_of(cuda_soft.soft_level(tables, gates, o, d, w, acc, last, True))
+            lean = _planes_of(cuda_soft.soft_level(tables, gates, o, d, w, acc, last, False))
+            want_out = cuda_soft.soft_level_reference(tables, o, d, w, acc, last, True)
+            want = _planes_of(want_out)
+            err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+            rel = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                      for a, b in zip(got, want))
+            r["fwd_err"].append(err)
+            r["fwd_rel"].append(rel)
+            r["fwd_identical"].append(all(torch.equal(a, b) for a, b in zip(got, want))
+                                      and all(torch.equal(a, b) for a, b in zip(lean, got)))
+            r["ms"].append(event_ms(lambda: cuda_soft.soft_level(tables, gates, o, d, w, acc,
+                                                                 last, False)))
+            r["ms_res"].append(event_ms(lambda: cuda_soft.soft_level(tables, gates, o, d, w, acc,
+                                                                     last, True)))
+            r["plain_ms"].append(event_ms(lambda: cuda_soft.soft_level_reference(
+                tables, o, d, w, acc, last), iters=2, warmup=1))
+            reached = soft_reached(tables, gates, o, d)
+            r["reached"].append(reached / n)
+            bound, by = soft_bound(soft_level_ops(counts, reached, n, last), 20, n)
+            r["bound_ms"].append(bound)
+            r["bound_by"].append(by)
+            levels.append((o, d, w, want_out[4], reached))
+            acc, w, o, d = want_out[0], want_out[1], want_out[2], want_out[3]
+    gen = torch.Generator(device=device).manual_seed(0)
+    ct = V3(*(torch.randn(w.shape, generator=gen, device=device) for _ in range(3)))
+    sums_k = torch.zeros(tables.packed.shape, dtype=torch.float64, device=device)
+    sums_r = torch.zeros_like(sums_k)
+    ct_next = None
+    for k in (1, 0):
+        o, d, w, res, reached = levels[k]
+        last = k == 1
+        got = cuda_soft.soft_level_bwd(tables, gates, o, d, w, res, ct, ct_next, last, sums_k)
+        want = cuda_soft.soft_level_bwd_reference(tables, o, d, w, res, ct, ct_next, last, sums_r)
+        r["bwd_rel"].append(max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                                for a, b in zip(got, want)))
+        scratch = torch.zeros_like(sums_k)
+        r["bwd_ms"].append(event_ms(lambda: cuda_soft.soft_level_bwd(
+            tables, gates, o, d, w, res, ct, ct_next, last, scratch), iters=5, warmup=1))
+        r["bwd_plain_ms"].append(event_ms(lambda: cuda_soft.soft_level_bwd_reference(
+            tables, o, d, w, res, ct, ct_next, last, scratch), iters=1, warmup=1))
+        n_carry = 5 if last else 15
+        bound, by = soft_bound(soft_level_bwd_ops(counts, reached, n, last),
+                               7 + 1 + n_carry + 3 + (0 if last else 7) + 7, n)
+        r["bwd_bound_ms"].append(bound)
+        r["bwd_bound_by"].append(by)
+        ct_next = want
+    r["bwd_rel"].reverse()
+    for key in ("bwd_ms", "bwd_plain_ms", "bwd_bound_ms", "bwd_bound_by"):
+        r[key].reverse()
+    table_rel, table_err, worst = 0.0, 0.0, None
+    for key, (off, size) in tables.layout.items():
+        a, b = sums_k[off:off + size], sums_r[off:off + size]
+        err = float((a - b).abs().max())
+        table_err = max(table_err, err)
+        rel = err / float(b.abs().max()) if float(b.abs().max()) else (float("inf") if err else 0.0)
+        if rel > table_rel:
+            table_rel, worst = rel, key
+    r["table_rel"], r["table_err"], r["table_worst"] = table_rel, table_err, worst
+    r["fwd_ok"] = max(r["fwd_rel"]) <= 1e-6
+    r["bwd_ok"] = max(r["bwd_rel"]) <= SOFT_BWD_TOL and table_rel <= SOFT_TABLE_TOL
+    r["ok"] = r["fwd_ok"] and r["bwd_ok"]
+    return r
+
+
+def print_soft(r: dict):
+    print(
+        f"soft_level {r['name']} ({r['n_s']} spheres): ok={r['fwd_ok']} "
+        f"identical={r['fwd_identical']} max_abs_err={max(r['fwd_err']):.3g} "
+        f"max_rel_err={max(r['fwd_rel']):.3g} ms={[round(v, 4) for v in r['ms']]} "
+        f"ms_res={[round(v, 4) for v in r['ms_res']]} "
+        f"plain_ms={[round(v, 2) for v in r['plain_ms']]} "
+        f"bound_ms={[round(v, 4) for v in r['bound_ms']]} ({r['bound_by']}) "
+        f"reached_chunks_per_lane={[round(v, 3) for v in r['reached']]}", flush=True,
+    )
+    print(
+        f"soft_level_bwd {r['name']}: ok={r['bwd_ok']} plane_max_rel_err="
+        f"{[float(f'{v:.3g}') for v in r['bwd_rel']]} table_max_rel_err={r['table_rel']:.3g} "
+        f"(array {r['table_worst']}) "
+        f"table_max_abs_err={r['table_err']:.3g} ms={[round(v, 4) for v in r['bwd_ms']]} "
+        f"plain_ms={[round(v, 1) for v in r['bwd_plain_ms']]} "
+        f"bound_ms={[round(v, 4) for v in r['bwd_bound_ms']]} ({r['bwd_bound_by']})",
+        flush=True,
+    )
+
+
+class PlainOnCuda:
+    """Counts calls of the soft plain versions on CUDA tensors while it is
+    entered (the wrappers look them up at call time)."""
+
+    names = ("soft_level_reference", "soft_level_bwd_reference")
+
+    def __enter__(self):
+        from raytracer_tpu_torch.ops import cuda_soft
+
+        self.calls, self.saved = 0, {}
+        for name in self.names:
+            fn = getattr(cuda_soft, name)
+            self.saved[name] = fn
+
+            def counted(*args, _fn=fn, **kwargs):
+                self.calls += int(args[3].is_cuda)  # w, every plain version's fourth argument
+                return _fn(*args, **kwargs)
+
+            setattr(cuda_soft, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        from raytracer_tpu_torch.ops import cuda_soft
+
+        for name, fn in self.saved.items():
+            setattr(cuda_soft, name, fn)
+
+
+def soft_fit_start(device, n: int = 64, width: int = 1920, height: int = 1080):
+    """The soft fit's inputs: grid-``n``, the camera, the true scene's soft
+    render (tau 0.01, depth 1) as the target, the centres moved by up to
+    0.15 (numpy seed 0)."""
+    from raytracer_tpu_torch import default_params, merge_params, render_soft
+    from raytracer_tpu_torch.models import scenes
+
+    truth = scenes.grid_sphere_scene(n, device=device)
+    camera = scenes.reference_demo_camera(device=device)
+    with torch.no_grad():
+        target = render_soft(truth, camera, width, height, tau=SOFT_TAU, tau_z=SOFT_TAU_Z,
+                             depth=1, device=device)
+    pert = np.random.default_rng(0).uniform(-0.15, 0.15, (n, 3)).astype(np.float32)
+    center = default_params(truth)["center"] + torch.from_numpy(pert).to(device)
+    return truth, merge_params(truth, {"center": center}), camera, target
+
+
+def _calls_ms(fn, iters: int) -> float:
+    from raytracer_tpu_torch.utils.profiler import _calls_ms
+
+    return _calls_ms(fn, iters)
+
+
+def drive_soft_render(device, width: int = 1920, height: int = 1080) -> dict:
+    """``render_soft`` of c4 (grid-64, 1920x1080, depth 1) through the public
+    entry point, the launch counts set to 0 just before and read just
+    after: 2 ``soft_level`` launches and nothing else, no plain version on
+    CUDA, a finite image in [0, 1)."""
+    from raytracer_tpu_torch import render_soft
+    from raytracer_tpu_torch.models import scenes
+
+    scene = scenes.grid_sphere_scene(64, device=device)
+    camera = scenes.reference_demo_camera(device=device)
+    with PlainOnCuda() as plain, torch.no_grad():
+        reset_launches()
+        img = render_soft(scene, camera, width, height, tau=SOFT_TAU, tau_z=SOFT_TAU_Z,
+                          depth=1, device=device)
+        torch.cuda.synchronize()
+        launches = read_launches()
+    stats = image_stats(img)
+    # A 1-D batch of rays takes the kernels too (any shape is lanes).
+    from raytracer_tpu_torch import V3, trace_soft
+    from raytracer_tpu_torch.ops.trace import raygen_tile
+
+    o, d = raygen_tile(camera, 64, 16)
+    batch = [c.broadcast_to(d.x.shape).reshape(-1) for c in (*o, *d)]
+    with PlainOnCuda() as plain_1d, torch.no_grad():
+        reset_launches()
+        rgb = trace_soft(scene, V3(*batch[:3]), V3(*batch[3:]), tau=SOFT_TAU, tau_z=SOFT_TAU_Z,
+                         depth=1)
+        torch.cuda.synchronize()
+        batch_ok = (read_launches() == launches_of(soft_level=2) and plain_1d.calls == 0
+                    and rgb.x.shape == (1024,) and bool(torch.isfinite(rgb.stacked()).all()))
+    ok = (launches == launches_of(soft_level=2) and plain.calls == 0
+          and stats["shape"] == (height, width, 3) and stats["nonfinite"] == 0
+          and stats["range_ok"] and batch_ok)
+
+    def frame():
+        with torch.no_grad():
+            render_soft(scene, camera, width, height, tau=SOFT_TAU, tau_z=SOFT_TAU_Z,
+                        depth=1, device=device)
+
+    frame()
+    times = [_calls_ms(frame, 1) for _ in range(10)]  # nothing queued ahead of a frame
+    return dict(launches=launches, plain_calls=plain.calls, image=stats, batch_1d_ok=batch_ok,
+                ok=ok, frame_ms=statistics.median(times), frame_ms_all=times)
+
+
+def profile_soft(device) -> dict:
+    """``profile_work`` over one c4 ``render_soft`` (grid-64, 1920x1080,
+    depth 1) and one c4 soft fit step from the moved centres."""
+    from raytracer_tpu_torch import make_fit_step, render_soft
+
+    truth, start, camera, target = soft_fit_start(device)
+    init_fn, step_fn = make_fit_step(1920, 1080, depth=1, soft=True, device=device)
+    state = init_fn(start)
+
+    def frame():
+        with torch.no_grad():
+            render_soft(truth, camera, 1920, 1080, tau=SOFT_TAU, tau_z=SOFT_TAU_Z, depth=1,
+                        device=device)
+
+    return profile_work({"render_soft": frame,
+                         "soft_fit_step": lambda: step_fn(state, start, camera, target)})
+
+
+def drive_soft_fit(device, steps: int = 20, width: int = 1920, height: int = 1080) -> dict:
+    """The soft fit at c4's full size through the public entry point:
+    ``make_fit_step(1920, 1080, depth=1, soft=True)`` (tau 0.01, tau_z 0.05,
+    Adam 2e-2 on the centres and colours), ``steps`` steps from the moved
+    centres toward the true scene's soft render, the launch counts set to 0
+    just before the run and read just after, and around each step. Each
+    step launches each soft kernel depth + 1 = 2 times, no other kernel and
+    no plain version on CUDA; the loss and the mean centre error fall."""
+    from raytracer_tpu_torch import make_fit_step
+
+    truth, start, camera, target = soft_fit_start(device, width=width, height=height)
+    init_fn, step_fn = make_fit_step(width, height, depth=1, soft=True, device=device)
+    state = init_fn(start)
+    losses, errors, per_step = [], [], []
+    with PlainOnCuda() as plain:
+        reset_launches()
+        for _ in range(steps):
+            before = read_launches()
+            state, loss = step_fn(state, start, camera, target)
+            losses.append(float(loss))
+            errors.append(float((state.params["center"].detach()
+                                 - truth.spheres.center).abs().mean()))
+            after = read_launches()
+            per_step.append({k: after[k] - before[k] for k in after})
+        torch.cuda.synchronize()
+        launches = read_launches()
+    ok = (all(p == launches_of(soft_level=2, soft_level_bwd=2) for p in per_step)
+          and plain.calls == 0 and all(np.isfinite(losses)) and losses[-1] < losses[0]
+          and errors[-1] < errors[0]
+          and all(bool(torch.isfinite(v).all()) for v in state.params.values()))
+    return dict(launches=launches, per_step=per_step, losses=losses, errors=errors,
+                plain_calls=plain.calls, ok=ok)
 
 
 def print_level(r: dict):
@@ -1224,7 +1589,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     kernels_built = ["trace_whole", "trace_whole_bwd", "ray_stats", "trace_level",
-                     "trace_level_bwd"]
+                     "trace_level_bwd", "soft_level", "soft_level_bwd"]
     _build.build(kernels_built)
     print(f"build: {', '.join(kernels_built)} {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -1400,6 +1765,54 @@ def main() -> int:
     except Exception as exc:  # the profiler's CUDA trace is untried on this machine
         print(f"profile: not available ({type(exc).__name__}: {exc})", flush=True)
 
+    # ---- the soft renderer: c4 render and fit, the large soft fits (kernels 6-7) ----
+    soft_results = []
+    for case in SOFT_CASES:
+        r = check_soft(case, "cuda")
+        soft_results.append(r)
+        ok &= r["ok"]
+        print_soft(r)
+    smain = soft_results[0]
+    srender = drive_soft_render("cuda")
+    ok &= srender["ok"]
+    print(
+        f"main path render_soft c4 grid64 1920x1080 d1: launches={srender['launches']} "
+        f"plain_calls_on_cuda={srender['plain_calls']} batch_1d_ok={srender['batch_1d_ok']} "
+        f"ok={srender['ok']} "
+        f"image={srender['image']} frame_ms={srender['frame_ms']:.4f} "
+        f"(all {[round(v, 4) for v in srender['frame_ms_all']]})", flush=True,
+    )
+    sfit = drive_soft_fit("cuda")
+    ok &= sfit["ok"]
+    _, sstart, _, _ = soft_fit_start("cuda")
+    c4 = benchmark_fit_step(sstart, camera, 1920, 1080, depth=1, soft=True, iters=10)
+    print(
+        f"main path soft fit c4 grid64 1920x1080 d1, {len(sfit['losses'])} make_fit_step(soft=True) "
+        f"steps: launches={sfit['launches']} per_step={sfit['per_step'][0]} "
+        f"plain_calls_on_cuda={sfit['plain_calls']} ok={sfit['ok']} "
+        f"losses={[float(f'{v:.6g}') for v in sfit['losses']]} "
+        f"center_errors={[float(f'{v:.5g}') for v in sfit['errors']]} "
+        f"step_ms={c4['step_ms']:.4f} (all {[round(v, 4) for v in c4['step_ms_all']]})",
+        flush=True,
+    )
+    try:
+        for name, p in profile_soft("cuda").items():
+            print(f"profile c4 grid64 1920x1080 d1 {name}: wall_ms={p['wall_ms']:.4f} "
+                  f"device_busy_ms={p['device_busy_ms']:.4f} idle_share={p['idle_share']} "
+                  f"top={p['top']}", flush=True)
+    except Exception as exc:  # the profiler's CUDA trace is untried on this machine
+        print(f"profile soft: not available ({type(exc).__name__}: {exc})", flush=True)
+    for n in (1024, 2048):  # bench.py's two large soft fits
+        reset_launches()
+        fit_n = benchmark_fit_step(scenes.grid_sphere_scene(n, device="cuda"), camera, 1920, 1080,
+                                   depth=1, soft=True, iters=3)
+        torch.cuda.synchronize()
+        n_launches = read_launches()  # 4 steps: one untimed, 3 timed
+        ok &= n_launches == launches_of(soft_level=8, soft_level_bwd=8)
+        print(f"soft fit step grid{n} 1920x1080 d1: launches={n_launches} "
+              f"step_ms={fit_n['step_ms']:.4f} (all {[round(v, 4) for v in fit_n['step_ms_all']]})",
+              flush=True)
+
     guards = check_guards("cuda")
     ok &= all(guards.values())
     print(f"guards (per-level route on CUDA, gradient paths run, refused launch raises): "
@@ -1477,6 +1890,35 @@ def main() -> int:
         "bound_ms": frame_sum(lmain["bwd_bound_ms"]), "bound_by": lmain["bwd_bound_by"],
         "library_ms": None,
         "check": all(r["bwd_ok"] for r in level_results),
+    }, {
+        "name": "soft_level", "route": "cuda",
+        "source": "raytracer_tpu_torch/csrc/soft_level.cu",
+        "replaces": "raytracer_tpu/ops/pallas_soft.py:671",
+        "launches": sfit["launches"]["soft_level"],
+        "launches_by_path": {"render_soft_c4": srender["launches"]["soft_level"],
+                             "soft_fit_c4_20_steps": sfit["launches"]["soft_level"]},
+        "max_abs_err": max(max(r["fwd_err"]) for r in soft_results),
+        "ms": frame_sum(smain["ms"]), "ms_per_level": smain["ms"],
+        "ms_emit_res": frame_sum(smain["ms_res"]),
+        "plain_ms": frame_sum(smain["plain_ms"]),
+        "bound_ms": frame_sum(smain["bound_ms"]), "bound_by": smain["bound_by"][0],
+        "library_ms": None,
+        "check": all(r["fwd_ok"] for r in soft_results),
+    }, {
+        "name": "soft_level_bwd", "route": "cuda",
+        "source": "raytracer_tpu_torch/csrc/soft_level_bwd.cu",
+        "replaces": "raytracer_tpu/ops/pallas_soft.py:745",
+        "launches": sfit["launches"]["soft_level_bwd"],
+        "launches_by_path": {"render_soft_c4": srender["launches"]["soft_level_bwd"],
+                             "soft_fit_c4_20_steps": sfit["launches"]["soft_level_bwd"]},
+        "max_abs_err": smain["table_err"],
+        "max_rel_err_all_cases": max(max(max(r["bwd_rel"]), r["table_rel"])
+                                     for r in soft_results),
+        "ms": frame_sum(smain["bwd_ms"]), "ms_per_level": smain["bwd_ms"],
+        "plain_ms": frame_sum(smain["bwd_plain_ms"]),
+        "bound_ms": frame_sum(smain["bwd_bound_ms"]), "bound_by": smain["bwd_bound_by"][0],
+        "library_ms": None,
+        "check": all(r["bwd_ok"] for r in soft_results),
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     if not ok:

@@ -6,7 +6,10 @@ tone map; its gradients through a second kernel, the whole-trace backward
 (``csrc/trace_whole_bwd.cu``), behind a ``torch.autograd.Function``; large
 scenes and deep traces through the per-level chain (``ops/cuda_level.py``:
 ``csrc/ray_stats.cu``, ``csrc/trace_level.cu``, ``csrc/trace_level_bwd.cu``);
-and the fit step (``parallel/train.py``). Entry points run on CUDA unless called
+the soft differentiable renderer for geometry fits (``diff/soft.py``:
+``render_soft``, one soft level per launch of ``csrc/soft_level.cu``, its
+backward ``csrc/soft_level_bwd.cu``, ``ops/cuda_soft.py``); and the fit step
+(``parallel/train.py``, hard or soft). Entry points run on CUDA unless called
 with ``device="cpu"``, which runs the kernels' plain PyTorch versions.
 """
 
@@ -22,12 +25,15 @@ from raytracer_tpu_torch.core.types import (
     Walls,
 )
 from raytracer_tpu_torch.core.v3 import V3
+from raytracer_tpu_torch.diff.soft import render_soft, trace_soft
 from raytracer_tpu_torch.parallel.train import default_params, make_fit_step, merge_params
 from raytracer_tpu_torch.render.integrator import render, trace_rays
 
 __all__ = [
     "render",
     "trace_rays",
+    "render_soft",
+    "trace_soft",
     "make_fit_step",
     "default_params",
     "merge_params",

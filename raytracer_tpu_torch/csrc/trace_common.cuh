@@ -516,7 +516,7 @@ __device__ __forceinline__ void lobes_bwd(
     chv[1] += 2.0f * c_n2 * f.hvy;
     chv[2] += 2.0f * c_n2 * f.hvz;
   }
-  const float c_ldn = f.ldn >= 0.0f ? c_diff : 0.0f;
+  const float c_ldn = c_diff * wmax(f.ldn, 0.0f);
   cl[0] += c_ldn * hnx + chv[0];
   cl[1] += c_ldn * hny + chv[1];
   cl[2] += c_ldn * hnz + chv[2];
@@ -543,10 +543,10 @@ __device__ __forceinline__ void lobes_bwd(
 // taken branch (strict det > 0, n2 > 1e-12, base > 0, z > 0, |denom| >
 // 1e-12, and `srecip`, whose derivative is 0 where it clamps); selections,
 // masks, t where it falls back to the saved t, and the box's face normal are
-// constants; `fmaxf`/`fminf` in the box slabs split the cotangent in half at
-// a tie (torch.maximum/minimum), while the clamps (the diffuse and specular
-// lobes, max(r, 1e-12), max(n2, 1e-12)) pass all of it where the value is at
-// the clamp (torch.clamp_min).
+// constants; every `fmaxf`/`fminf` splits the cotangent in half at a tie,
+// the box slabs' (torch.maximum/minimum) and the clamps' against a constant
+// alike (the diffuse lobe, max(r, 1e-12), max(n2, 1e-12): the JAX package's
+// jnp.maximum(x, c), the plain version's `max_c`).
 __device__ __forceinline__ bool level_adjoint(
     const Tab& T, bool is_last, bool alive, const float o[3], const float d[3], float w,
     float t_sel, int bi, float car, float cag, float cab, const float co[3],
@@ -751,7 +751,7 @@ __device__ __forceinline__ bool level_adjoint(
                 exq, cl, c_hn, c_vw, ca[11], ca[12], ca[13]);
       // l = ld * inv, inv = rsqrt(max(n2, 1e-12)), ld = light - hp
       const float c_inv = cl[0] * ld[0] + cl[1] * ld[1] + cl[2] * ld[2];
-      const float c_n2 = n2 >= 1e-12f ? c_inv * (-0.5f * (inv * inv * inv)) : 0.0f;
+      const float c_n2 = c_inv * (-0.5f * (inv * inv * inv)) * wmax(n2, 1e-12f);
 #pragma unroll
       for (int j = 0; j < 3; ++j) {
         const float c_ld = cl[j] * inv + 2.0f * c_n2 * ld[j];
@@ -791,7 +791,7 @@ __device__ __forceinline__ bool level_adjoint(
         ca[j] -= c_hn[j] * inv_r;
         c_inv_r += c_hn[j] * (hp[j] - g[j]);
       }
-      if (g[3] >= 1e-12f) ca[3] -= c_inv_r * (inv_r * inv_r);
+      ca[3] -= c_inv_r * (inv_r * inv_r) * wmax(g[3], 1e-12f);
     } else if (kind == 1) {
 #pragma unroll
       for (int j = 0; j < 3; ++j) ca[j] += c_hn[j];  // hn = the normal

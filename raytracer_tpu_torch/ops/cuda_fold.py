@@ -43,6 +43,7 @@ __all__ = [
     "FUSED_MAX_CHUNKS",
     "FUSED_MAX_DEPTH",
     "FusedTables",
+    "max_c",
     "resolve_unroll",
     "resolve_gate_geom",
     "fused_tables",
@@ -300,6 +301,14 @@ def check_fused_class(scene: Scene, depth: int) -> None:
 # ---------------------------------------------------------------------------
 
 
+def max_c(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``max(x, c)`` for a constant ``c`` with the JAX package's derivative
+    (``jnp.maximum(x, c)``): at a tie ``x == c``, ``x`` gets half of the
+    cotangent (``torch.maximum``'s rule; ``torch.clamp_min`` would pass all
+    of it). The value is the clamp's."""
+    return torch.maximum(x, x.new_full((), c))
+
+
 def _srecip(c: torch.Tensor) -> torch.Tensor:
     """Sign-preserving safe reciprocal: ``1/c``, or +-1e30 where |c| <= 1e-12."""
     ok = torch.abs(c) > 1e-12
@@ -325,7 +334,7 @@ def _slab_segment(t: dict, o: V3, iv):
     spheres, and whether it meets the slab at all."""
     a = [((t[f"slab_lo_{x}"] - oc) * ivc, (t[f"slab_hi_{x}"] - oc) * ivc)
          for x, oc, ivc in zip("xyz", o, iv)]
-    t0 = torch.clamp_min(torch.maximum(torch.maximum(
+    t0 = max_c(torch.maximum(torch.maximum(
         torch.minimum(*a[0]), torch.minimum(*a[1])), torch.minimum(*a[2])), 0.0)
     t_ex = torch.minimum(torch.minimum(
         torch.maximum(*a[0]), torch.maximum(*a[1])), torch.maximum(*a[2]))
@@ -561,7 +570,7 @@ def _record_math(acc, t_sel, hit, is_s, is_w, is_b, o: V3, d: V3):
     t_safe = torch.where(hit, tt, 1.0)
     hpx, hpy, hpz = ox + dx * t_safe, oy + dy * t_safe, oz + dz * t_safe
 
-    inv_r = 1.0 / torch.clamp_min(g3, 1e-12)
+    inv_r = 1.0 / max_c(g3, 1e-12)
     hn = [(hpx - g0) * inv_r, (hpy - g1) * inv_r, (hpz - g2) * inv_r]
     hn = [torch.where(is_w, gk, h) for h, gk in zip(hn, (g0, g1, g2))]
     tx = (torch.where(dx >= 0, g0, g3) - ox) * ivx
@@ -602,11 +611,11 @@ def _level_math(acc, o: V3, d: V3, w, t_sel, hit, is_s, is_w, is_b,
     vwx, vwy, vwz = -dx, -dy, -dz
 
     def light_terms(lx, ly, lz):
-        diffuse = torch.clamp_min(lx * hnx + ly * hny + lz * hnz, 0.0)
+        diffuse = max_c(lx * hnx + ly * hny + lz * hnz, 0.0)
         hvx, hvy, hvz = vwx + lx, vwy + ly, vwz + lz
         n2 = hvx * hvx + hvy * hvy + hvz * hvz
         hsc = torch.rsqrt(torch.where(n2 > 1e-12, n2, 1.0))
-        base = torch.clamp_min((hvx * hnx + hvy * hny + hvz * hnz) * hsc, 0.0)
+        base = max_c((hvx * hnx + hvy * hny + hvz * hnz) * hsc, 0.0)
         specular = torch.where(
             base > 0.0, torch.exp(exq * torch.log(torch.where(base > 0.0, base, 1.0))), 0.0
         )
@@ -622,7 +631,7 @@ def _level_math(acc, o: V3, d: V3, w, t_sel, hit, is_s, is_w, is_b,
         ldy = py - hpy
         ldz = pz - hpz
         n2 = ldx * ldx + ldy * ldy + ldz * ldz
-        inv = torch.rsqrt(torch.clamp_min(n2, 1e-12))
+        inv = torch.rsqrt(max_c(n2, 1e-12))
         term = light_terms(ldx * inv, ldy * inv, ldz * inv)
         ir = ir + cr * term
         ig = ig + cg * term

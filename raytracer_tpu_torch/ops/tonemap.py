@@ -17,7 +17,9 @@ def reinhard_tonemap(rgb: torch.Tensor) -> torch.Tensor:
     luma = (
         _LUMA[0] * rgb[..., 0] + _LUMA[1] * rgb[..., 1] + _LUMA[2] * rgb[..., 2]
     )[..., None]
-    return rgb / (1.0 + torch.clamp_min(luma, 0.0))
+    # torch.maximum, as the JAX package's jnp.maximum(luma, 0.0): half the
+    # cotangent at luma == 0.
+    return rgb / (1.0 + torch.maximum(luma, luma.new_zeros(())))
 
 
 def to_uint8(rgb: torch.Tensor) -> torch.Tensor:

@@ -1,10 +1,12 @@
-"""The differentiable-rendering fit step on the hard renderer.
+"""The differentiable-rendering fit step.
 
 Fit scene leaves (by default the sphere centers and colours) to a target
-image by Adam on the image MSE: one ``render`` with gradients (the
-whole-trace kernel with residuals, then its backward kernel), one backward
-and one update per step. The soft renderer and the pixel-sharded mesh are
-not ported yet and raise.
+image by Adam on the image MSE: one render with gradients, one backward and
+one update per step. The hard renderer (``render``: its forward kernels with
+residuals, then their backward kernels) has no gradient at silhouettes;
+geometry fits take the soft one (``soft=True``: ``render_soft``, the soft
+level kernels and their backward). The pixel-sharded mesh is not ported
+yet and raises.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from typing import Any, Callable
 import torch
 
 from raytracer_tpu_torch.core.types import Camera, Scene
+from raytracer_tpu_torch.diff.soft import render_soft
 from raytracer_tpu_torch.render.integrator import render
 
 __all__ = ["FitState", "make_fit_step", "default_params", "merge_params"]
@@ -65,6 +68,8 @@ def make_fit_step(
     tonemap: bool = True,
     device=None,
     soft: bool = False,
+    soft_tau: float = 0.01,
+    soft_tau_z: float = 0.05,
     optimizer: Callable[[dict], torch.optim.Optimizer] | None = None,
 ) -> tuple[Callable, Callable]:
     """Build ``(init_fn, step_fn)`` for the differentiable fit.
@@ -76,15 +81,12 @@ def make_fit_step(
     ``torch.optim.Adam`` at ``learning_rate`` and optax's defaults (betas
     0.9 and 0.999, eps 1e-8).
     ``step_fn(state, scene, camera, target) -> (state, loss)`` renders
-    ``merge_params(scene, params)`` at ``width`` x ``height`` and ``depth``,
-    takes the MSE against ``target`` (``[H, W, 3]``), and does one backward
-    and one Adam update, in place. ``device=None`` runs on CUDA.
+    ``merge_params(scene, params)`` at ``width`` x ``height`` and ``depth``
+    (with ``soft``, ``render_soft`` at ``soft_tau`` and ``soft_tau_z``; the
+    soft path's ``depth`` counts its expected-surface reflections), takes
+    the MSE against ``target`` (``[H, W, 3]``), and does one backward and
+    one Adam update, in place. ``device=None`` runs on CUDA.
     """
-    if soft:
-        raise NotImplementedError(
-            "the soft renderer's fit is not ported yet (ROADMAP queue 1, "
-            "item 7, and queue 2, kernels 6-7)"
-        )
     if mesh is not None:
         raise NotImplementedError(
             "the pixel-sharded fit over a mesh is not ported yet (ROADMAP "
@@ -107,10 +109,13 @@ def make_fit_step(
     def step_fn(state: FitState, scene: Scene, camera: Camera,
                 target: torch.Tensor) -> tuple[FitState, torch.Tensor]:
         state.optimizer.zero_grad(set_to_none=True)
-        img = render(
-            merge_params(scene, state.params), camera, width, height, depth=depth,
-            tonemap=tonemap, device=device,
-        )
+        full = merge_params(scene, state.params)
+        if soft:
+            img = render_soft(full, camera, width, height, tau=soft_tau, tau_z=soft_tau_z,
+                              tonemap=tonemap, depth=depth, device=device)
+        else:
+            img = render(full, camera, width, height, depth=depth, tonemap=tonemap,
+                         device=device)
         loss = torch.mean((img - target) ** 2)
         loss.backward()
         state.optimizer.step()

@@ -192,8 +192,9 @@ def benchmark_fit_step(
     iters: int = 10,
     optimizer=None,
 ) -> dict:
-    """Time of one ``make_fit_step`` step (render with gradients, backward,
-    optimizer update; ``optimizer`` as ``make_fit_step`` takes it) on the
+    """Time of one ``make_fit_step`` step (render with gradients, the soft
+    ``render_soft`` with ``soft``, backward, optimizer update; ``optimizer``
+    as ``make_fit_step`` takes it) on the
     card: the median over ``iters`` steps of the CUDA event time from just
     before the step, with nothing queued ahead, to the end of its last
     device op, fitting ``scene`` to a black image."""

@@ -351,29 +351,41 @@ def test_trace_whole_bwd_checks_inputs():
 
 
 def test_tie_rules():
-    """The derivative rules at ties, which the backward kernel follows too
-    (csrc/trace_whole_bwd.cu's `wmax`/`wmin` and its `>=` clamp tests):
-    the box slabs' ``torch.maximum`` gives each side half of the cotangent
-    at a tie, as ``jnp.maximum`` does; a clamp (``torch.clamp_min``) passes
-    all of it to the clamped value at its bound, where ``jnp.maximum(x, c)``
-    would pass half."""
+    """The derivative rules at ties, which the backward kernels follow too
+    (csrc/trace_common.cuh's `wmax`/`wmin`): every max and min gives each
+    side half of the cotangent at a tie, the box slabs' ``torch.maximum``
+    and the clamps against a constant (``cuda_fold.max_c``) alike, as
+    ``jax.grad`` of the JAX package's functions gives it (``jnp.maximum``;
+    its clamps are written ``jnp.maximum(x, c)``)."""
+    import jax
+
+    from raytracer_tpu.diff.soft import _box_alpha_t_scalar
+    from raytracer_tpu.ops.trace import _light_terms
+
     counts = {"n_s": 0, "n_w": 1, "n_b": 1, "n_pt": 0, "n_sun": 1}
     one = torch.ones(1)
     # A ray along (1, 1, 0) into the box [1, 2] x [1, 2] x [-1, 1]: the x and
     # y slabs tie at t = sqrt(2); z is parallel (srecip clamps, no gradient).
     s = float(np.sqrt(0.5))
-    geom = [torch.tensor([v], requires_grad=True) for v in (1.0, 1.0, -1.0, 2.0, 2.0, 1.0)]
+    corners = (1.0, 1.0, -1.0, 2.0, 2.0, 1.0)
+    geom = [torch.tensor([v], requires_grad=True) for v in corners]
     acc = geom + [one * 0.5] * 8
     o, d = V3(one * 0, one * 0, one * 0), V3(one * s, one * s, one * 0)
     hit = torch.tensor([True])
     no = torch.tensor([False])
     tt, _, _ = cuda_fold._record_math(acc, one, hit, no, no, hit, o, d)
     g = torch.autograd.grad(tt.sum(), geom)
-    iv = 1.0 / np.float32(s)
-    np.testing.assert_allclose([float(x) for x in g], [0.5 * iv, 0.5 * iv, 0, 0, 0, 0], rtol=1e-6)
+    keys = ("mnx", "mny", "mnz", "mxx", "mxy", "mxz")
+    jo, jd = JV3(*(jnp.float32(v) for v in (0, 0, 0))), JV3(*(jnp.float32(v) for v in (s, s, 0)))
+    want = jax.grad(
+        lambda p: _box_alpha_t_scalar(p, jo, jd, 0.02)[1]
+    )({k: jnp.float32(v) for k, v in zip(keys, corners)})
+    np.testing.assert_allclose([float(x) for x in g], [float(want[k]) for k in keys], rtol=1e-6)
+    assert float(want["mnx"]) != 0.0  # the tie splits, it does not drop
     # A wall with normal +z hit straight down, lit by a sun along +x: the
     # diffuse lobe sits exactly at its clamp (l . n = 0); with no specular
-    # strength, the sun direction's z cotangent is the lobe's full slope.
+    # strength, the sun direction's z cotangent is the lobe's slope at the
+    # tie, half of it, as jax.grad of the JAX package's _light_terms gives.
     wall = [0.0, 0.0, 1.0, 0.0, 0.0, 0.0]  # normal, corner
     mats = [1.0, 1.0, 1.0, 0.0, 0.0, 1.0, 0.0, 1.0]  # rgb, amb, met, dif, spe, exp
     acc = [one * v for v in wall + mats]
@@ -383,4 +395,20 @@ def test_tie_rules():
         acc, o, d, one, one, hit, no, hit, no, ls, counts, True
     )
     (g,) = torch.autograd.grad(inc.x.sum(), ls)
-    assert inc.x.item() == 0.0 and g[2].item() == 1.0
+    f32 = jnp.float32
+    want = jax.grad(lambda lz: _light_terms(
+        JV3(f32(1.0), f32(0.0), lz), JV3(f32(0.0), f32(0.0), f32(1.0)),
+        JV3(f32(0.0), f32(0.0), f32(1.0)), f32(1.0))[0])(f32(0.0))
+    assert inc.x.item() == 0.0 and float(want) == 0.5
+    assert g[2].item() == float(want)
+    # The tone map's clamp of the luma, at a luma of exactly 0 (its two
+    # products cancel): torch.maximum, as the JAX package's jnp.maximum.
+    from raytracer_tpu.ops.tonemap import reinhard_tonemap as j_tonemap
+    from raytracer_tpu_torch.ops.tonemap import reinhard_tonemap
+
+    x = np.array([[0.7152, -0.2126, 0.0]], np.float32)
+    rgb = torch.tensor(x, requires_grad=True)
+    (g,) = torch.autograd.grad(reinhard_tonemap(rgb)[0, 0], rgb)
+    want = jax.grad(lambda v: j_tonemap(v)[0, 0])(jnp.asarray(x))
+    np.testing.assert_allclose(g.numpy(), np.asarray(want), rtol=1e-6)
+    assert float(want[0, 1]) != 0.0

@@ -141,7 +141,17 @@ def test_fit_lowers_the_loss():
 
 
 def test_fit_rejects_soft_and_mesh():
-    with pytest.raises(NotImplementedError, match="soft"):
-        make_fit_step(8, 8, soft=True)
+    """The pixel-sharded mesh is not ported and raises, with or without
+    ``soft``; the soft fit is ported (tests/test_torch_soft_grad.py holds
+    it against the JAX package) and takes a step."""
     with pytest.raises(NotImplementedError, match="mesh"):
         make_fit_step(8, 8, mesh=object())
+    with pytest.raises(NotImplementedError, match="mesh"):
+        make_fit_step(8, 8, mesh=object(), soft=True)
+    scene = tscenes.grid_sphere_scene(4, distance=4.0, device="cpu")
+    cam = tscenes.reference_demo_camera(device="cpu")
+    init_fn, step_fn = make_fit_step(8, 6, depth=1, soft=True, device="cpu")
+    state, loss = step_fn(init_fn(scene), scene, cam, torch.zeros((6, 8, 3)))
+    assert state.step == 1 and np.isfinite(float(loss)) and float(loss) > 0.0
+    assert all(bool(torch.isfinite(v.grad).all()) and float(v.grad.abs().max()) > 0.0
+               for v in state.params.values())
