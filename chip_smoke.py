@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases, one line each: the card's name and power limit; the build of the
-seven kernels from csrc/ (one nvcc each, started together); the whole-trace
+nine kernels from csrc/ (one nvcc each, started together); the whole-trace
 kernels against their plain PyTorch versions on their five workloads (the
 forward with and without its residual planes, the backward on the forward's
 residuals); the per-level kernels (ray_stats, trace_level,
@@ -19,11 +19,19 @@ training path (5 steps at 1920x1080, depth 3); the soft kernels
 workloads, level by level, the residual planes and the backward included;
 the soft render path (``render_soft`` of BASELINE c4, grid-64 at 1920x1080,
 depth 1) and its training path (20 ``make_fit_step(soft=True)`` steps from
-moved centres, the loss and the centre error falling), each path with the
-kernel launch counts set to 0 just before it and read just after; the
-frame, fit step (soft: c4, grid-1024, grid-2048) and forward/backward
-times and breakdowns; a profile of one frame; the guards; a ``kernels``
-JSON line. The last line is ``{"ok": true, "device":
+moved centres, the loss and the centre error falling); the closest-hit
+kernels (fold_flat, fold_shortlist, fold_shortlist_hit) against their plain
+versions on seven workloads (primary and level-1 bounce rays, an all-dead
+mask) and against each other, their times and bounds, and the sweep of
+``closest_hit_soa``'s record cut-off; the closest-hit paths: ``render_depth``
+of BASELINE c1 (320x240), of grid-1024 at 1920x1080 and of c5 (3840x2160,
+4 row chunks), the ``"pallas"`` selector's fold as a direct caller runs it
+(c1, grid-1024), ``render(fold="pallas_flat")`` of sprint3 1920x1080 d3, and
+the per-level loop around ``closest_hit_soa`` on grid-1024 1920x1080 d3 with
+its gradient; each path with the kernel launch counts set to 0 just before
+it and read just after; the frame, fit step (soft: c4, grid-1024,
+grid-2048) and forward/backward times and breakdowns; a profile of one
+frame; the guards; a ``kernels`` JSON line. The last line is ``{"ok": true, "device":
 {...}}``. Any failed check ends the run with a non-zero exit code and no
 result line. Without CUDA, or without the package beside it, it exits
 non-zero at once.
@@ -31,6 +39,7 @@ non-zero at once.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -88,6 +97,34 @@ SOFT_CASES = (
     ("grid2048_480x270_d1", ("grid_sphere_scene", (2048,)), 480, 270),
 )
 SOFT_TAU, SOFT_TAU_Z = 0.01, 0.05
+
+# The closest-hit kernels' workloads (fold_flat, fold_shortlist,
+# fold_shortlist_hit), each on the frame's primary rays and on its level-1
+# bounce rays with their alive mask. The first is BASELINE c1 (the demo
+# scene at 320x240, a depth pass: app/config.py:80-84); then the frame of
+# the fold="pallas_flat" render path (sprint3 1080p), grid-64 at 1080p,
+# boxes (the mixed scene), ragged tiles with shortlists (grid-130 at
+# 333x111), a walls-only scene (sprint3 without its sphere), and grid-1024
+# (c5's scene) at a quarter of 1080p each way: the plain versions fold every
+# listed chunk of every lane at once and are slow there.
+HIT_CASES = (
+    ("c1_demo_320x240", ("reference_demo_scene", ()), 320, 240),
+    ("sprint3_1920x1080", ("sprint3_scene", ()), 1920, 1080),
+    ("grid64_1920x1080", ("grid_sphere_scene", (64,)), 1920, 1080),
+    ("mixed_256x128", ("mixed_primitive_scene", ()), 256, 128),
+    ("grid130_333x111", ("grid_sphere_scene", (130,)), 333, 111),
+    ("walls_only_256x128", ("walls_only", ()), 256, 128),
+    ("grid1024_480x270", ("grid_sphere_scene", (1024,)), 480, 270),
+)
+# Where the closest-hit kernels are timed: the frames of their main paths
+# (c1's depth pass, render(fold="pallas_flat") of sprint3, render_depth and
+# the per-level loop of grid-1024) and grid-64.
+HIT_TIME_CASES = (
+    ("c1_demo_320x240", ("reference_demo_scene", ()), 320, 240),
+    ("sprint3_1920x1080", ("sprint3_scene", ()), 1920, 1080),
+    ("grid64_1920x1080", ("grid_sphere_scene", (64,)), 1920, 1080),
+    ("grid1024_1920x1080", ("grid_sphere_scene", (1024,)), 1920, 1080),
+)
 # Tolerance of the soft backward kernel against its plain version: each
 # cotangent plane within 1e-4 of its largest entry, each table array within
 # 1e-3 of its largest entry. The kernel takes the same derivatives by hand,
@@ -336,6 +373,13 @@ def make_scene(spec, device):
     if factory == "grid80_boxes":
         grid = scenes.grid_sphere_scene(80, device=device)
         return grid.replace(boxes=scenes.mixed_primitive_scene(device=device).boxes)
+    if factory == "walls_only":
+        scene = scenes.sprint3_scene(device=device)
+        sp, mat = scene.spheres, scene.spheres.material
+        return scene.replace(spheres=sp.replace(
+            center=sp.center[:0], radius=sp.radius[:0],
+            material=mat.replace(**{f.name: getattr(mat, f.name)[:0]
+                                    for f in dataclasses.fields(mat)})))
     return getattr(scenes, factory)(*args, device=device)
 
 
@@ -769,12 +813,14 @@ def drive_main_path(device, width: int = 1920, height: int = 1080, depth: int = 
 def _counted():
     from raytracer_tpu_torch.ops import cuda_fold, cuda_level
 
-    from raytracer_tpu_torch.ops import cuda_soft
+    from raytracer_tpu_torch.ops import cuda_hit, cuda_soft
 
     return {"trace_whole": cuda_fold.trace_whole, "trace_whole_bwd": cuda_fold.trace_whole_bwd,
             "ray_stats": cuda_level.ray_stats, "trace_level": cuda_level.trace_level,
             "trace_level_bwd": cuda_level.trace_level_bwd,
-            "soft_level": cuda_soft.soft_level, "soft_level_bwd": cuda_soft.soft_level_bwd}
+            "soft_level": cuda_soft.soft_level, "soft_level_bwd": cuda_soft.soft_level_bwd,
+            "fold_flat": cuda_hit.fold_flat, "fold_shortlist": cuda_hit.fold_shortlist,
+            "fold_shortlist_hit": cuda_hit.fold_shortlist_hit}
 
 
 def reset_launches():
@@ -1390,32 +1436,48 @@ def print_soft(r: dict):
     )
 
 
-class PlainOnCuda:
-    """Counts calls of the soft plain versions on CUDA tensors while it is
-    entered (the wrappers look them up at call time)."""
+def _on_cuda(args) -> bool:
+    """Whether the first tensor (or V3 of tensors) among ``args`` is on CUDA."""
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            return a.is_cuda
+        if isinstance(a, tuple) and a and isinstance(a[0], torch.Tensor):
+            return a[0].is_cuda
+    return False
 
-    names = ("soft_level_reference", "soft_level_bwd_reference")
+
+class PlainOnCuda:
+    """Counts calls of the kernels' plain versions on CUDA tensors while it
+    is entered (the wrappers look them up at call time): the soft kernels',
+    the per-level chain's and the closest-hit kernels'."""
+
+    names = {
+        "cuda_soft": ("soft_level_reference", "soft_level_bwd_reference"),
+        "cuda_level": ("ray_stats_reference", "trace_level_reference"),
+        "cuda_hit": ("fold_flat_reference", "fold_shortlist_reference",
+                     "fold_shortlist_hit_reference"),
+    }
 
     def __enter__(self):
-        from raytracer_tpu_torch.ops import cuda_soft
+        import importlib
 
-        self.calls, self.saved = 0, {}
-        for name in self.names:
-            fn = getattr(cuda_soft, name)
-            self.saved[name] = fn
+        self.calls, self.saved = 0, []
+        for module, names in self.names.items():
+            mod = importlib.import_module(f"raytracer_tpu_torch.ops.{module}")
+            for name in names:
+                fn = getattr(mod, name)
+                self.saved.append((mod, name, fn))
 
-            def counted(*args, _fn=fn, **kwargs):
-                self.calls += int(args[3].is_cuda)  # w, every plain version's fourth argument
-                return _fn(*args, **kwargs)
+                def counted(*args, _fn=fn, **kwargs):
+                    self.calls += int(_on_cuda(args))
+                    return _fn(*args, **kwargs)
 
-            setattr(cuda_soft, name, counted)
+                setattr(mod, name, counted)
         return self
 
     def __exit__(self, *exc):
-        from raytracer_tpu_torch.ops import cuda_soft
-
-        for name, fn in self.saved.items():
-            setattr(cuda_soft, name, fn)
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
 
 
 def soft_fit_start(device, n: int = 64, width: int = 1920, height: int = 1080):
@@ -1538,6 +1600,444 @@ def drive_soft_fit(device, steps: int = 20, width: int = 1920, height: int = 108
                 plain_calls=plain.calls, ok=ok)
 
 
+# ---------------------------------------------------------------------------
+# The closest-hit kernels (fold_flat, fold_shortlist, fold_shortlist_hit)
+# ---------------------------------------------------------------------------
+
+
+def same_mask(a, b) -> torch.Tensor:
+    """Where two planes agree bit for bit, NaN where NaN (-0.0 equals 0.0)."""
+    return (a == b) | (torch.isnan(a) & torch.isnan(b))
+
+
+def same_planes(a, b) -> bool:
+    return bool(same_mask(a, b).all())
+
+
+def max_err(a, b) -> float:
+    """The largest |a - b| of two planes (NaN where both are NaN counts 0)."""
+    if not a.numel():
+        return 0.0
+    return float((a.double() - b.double()).abs().nan_to_num(0.0, posinf=0.0).max())
+
+
+def fold_ops(tables, listed, idx: np.ndarray, alive: np.ndarray, used: np.ndarray,
+             kind: str) -> float:
+    """Float32 operations of one closest-hit kernel on this run's data,
+    reckoned from its source as ``trace_level_ops`` is. ``"flat"``
+    (csrc/fold_flat.cu): per lane the ray terms (19), every sphere (22),
+    wall (39) and box (25). ``"shortlist"`` and ``"record"``
+    (csrc/fold_shortlist.cu): per alive lane the ray terms, walls and
+    boxes; per used lane the slab clip (25) and the gate of every chunk of
+    its tile's list; the spheres of one chunk where the winner is a sphere
+    (a lower bound: a lane may fold more chunks than its winner's); with
+    ``"record"`` the winner's record (sphere 38, wall 22, box 39)."""
+    c = tables.counts
+    n_s, n_w, n_b = c["n_s"], c["n_w"], c["n_b"]
+    if kind == "flat":
+        return float(alive.size * (19 + 22 * n_s + 39 * n_w + 25 * n_b))
+    gate = 26 if c["gate"] == 0 else 24
+    ops = float((19 + 39 * n_w + 25 * n_b) * alive.sum())
+    if n_s:
+        ops += float((25 * used + gate * listed * used).sum())
+        ops += 22.0 * min(c["unroll"], n_s) * (alive & (idx >= 0) & (idx < n_s)).sum()
+    if kind == "record":
+        for rec, lo, hi in ((38, 0, n_s), (22, n_s, n_s + n_w),
+                            (39, n_s + n_w, n_s + n_w + n_b)):
+            ops += float(rec * (alive & (idx >= lo) & (idx < hi)).sum())
+    return ops
+
+
+def hit_inputs(tables, o, d, w):
+    """The rays' shortlists (``cuda_hit.shortlists``: a ``ray_stats``
+    launch and phase A), and each lane's list length."""
+    from raytracer_tpu_torch.ops import cuda_hit, cuda_level
+
+    sl = cuda_hit.shortlists(tables, o, d, w)
+    if sl is None:
+        return None, np.full(tuple(w.shape), tables.counts["n_c"])
+    (tr, tc), _, tw = cuda_level.tile_grid(w.shape)
+    h, wd = w.shape
+    tid = (torch.arange(h, device=w.device)[:, None] // tr * tw
+           + torch.arange(wd, device=w.device)[None, :] // tc)
+    return sl, sl[1].clamp_min(0)[tid].cpu().numpy()
+
+
+def check_hit_rays(tables, o, d, w) -> dict:
+    """The three closest-hit kernels against their plain versions on one
+    set of ``[H, W]`` rays with their alive plane ``w``, on the same
+    shortlists: ``fold_flat``, ``fold_shortlist`` and ``fold_shortlist_hit``
+    bit for bit (every plane; NaN where NaN). Then the kernels against each
+    other: the record's index is the fold's, and the brute-force fold
+    (ungated) against the gated one on the alive lanes, with the lanes where
+    they differ counted among all and among those whose direction is not
+    unit (| |d| - 1 | > 1e-6), where a chunk's gate may drop a hit."""
+    from raytracer_tpu_torch.ops import cuda_hit
+
+    sl, _ = hit_inputs(tables, o, d, w)
+    k10, p10 = cuda_hit.fold_flat(tables, o, d), cuda_hit.fold_flat_reference(tables, o, d)
+    k9 = cuda_hit.fold_shortlist(tables, sl, o, d, w)
+    p9 = cuda_hit.fold_shortlist_reference(tables, sl, o, d, w)
+    k8 = cuda_hit.fold_shortlist_hit(tables, sl, o, d, w)
+    p8 = cuda_hit.fold_shortlist_hit_reference(tables, sl, o, d, w)
+    alive = w > 0
+    norm = torch.sqrt(d.x.double() ** 2 + d.y.double() ** 2 + d.z.double() ** 2)
+    non_unit = (norm - 1.0).abs() > 1e-6
+    differ = alive & ((k10[1] != k9[1]) | ~same_mask(k10[0], k9[0]))
+    out = dict(
+        alive=int(alive.sum()), hits=int((alive & (k9[1] >= 0)).sum()),
+        flat_same=same_planes(k10[0], p10[0]) and torch.equal(k10[1], p10[1]),
+        shortlist_same=same_planes(k9[0], p9[0]) and torch.equal(k9[1], p9[1]),
+        record_same=(torch.equal(k8[1], p8[1])
+                     and all(same_planes(a, b) for a, b in zip(k8[:1] + k8[2:], p8[:1] + p8[2:]))),
+        record_index_is_fold=torch.equal(k8[1], k9[1]),
+        dead_miss=bool(((k9[1][~alive] == -1) & (k9[0][~alive] == 1e30)).all()
+                       and (k8[1][~alive] == -1).all() and (k8[7][~alive] == 1.0).all()),
+        flat_vs_shortlist_differ=int(differ.sum()),
+        flat_vs_shortlist_differ_unit=int((differ & ~non_unit).sum()),
+        non_unit_alive=int((alive & non_unit).sum()),
+        flat_err=max_err(k10[0], p10[0]), shortlist_err=max_err(k9[0], p9[0]),
+        record_err=max(max_err(a, b) for a, b in zip(k8[:1] + k8[2:], p8[:1] + p8[2:])),
+    )
+    out["ok"] = (out["flat_same"] and out["shortlist_same"] and out["record_same"]
+                 and out["record_index_is_fold"] and out["dead_miss"]
+                 and out["flat_vs_shortlist_differ_unit"] == 0)
+    return out
+
+
+def check_hit(case, device) -> dict:
+    """The closest-hit kernels on one workload (``check_hit_rays``): the
+    frame's primary rays, its level-1 bounce rays with their alive mask
+    (from the per-level chain's residuals), and, on the first ray set, an
+    all-dead mask."""
+    from raytracer_tpu_torch.core.v3 import V3
+    from raytracer_tpu_torch.ops import cuda_fold, cuda_level
+
+    name, spec, width, height = case
+    tables = cuda_fold.fused_tables(make_scene(spec, device))
+    o, d, w = frame_rays(width, height, device)
+    _, _, _, res = cuda_level.trace_levels(tables, o, d, w, 1, emit_res=True)
+    r = res[0]
+    out = dict(name=name, n_prim=sum(tables.counts[k] for k in ("n_s", "n_w", "n_b")),
+               n_c=tables.counts["n_c"],
+               primary=check_hit_rays(tables, o, d, w),
+               bounce=check_hit_rays(tables, V3(*r[:3]), V3(*r[3:6]), r[6].contiguous()))
+    dead = check_hit_rays(tables, o, d, torch.zeros_like(w))
+    out["all_dead_ok"] = dead["ok"] and dead["hits"] == 0
+    out["ok"] = out["primary"]["ok"] and out["bounce"]["ok"] and out["all_dead_ok"]
+    for key in ("flat_err", "shortlist_err", "record_err"):
+        out[key] = max(out["primary"][key], out["bounce"][key])
+    return out
+
+
+def flat_canary(device, width: int = 1920, height: int = 1080, depth: int = 3) -> list:
+    """The ungated fold against the gated one on grid-1024's bounce rays at
+    full size (kernels only): for each bounce level of the per-level chain,
+    the alive lanes, those whose direction is not unit (| |d| - 1 | >
+    1e-6, after grazing bounces), and the lanes where ``fold_flat`` and
+    ``fold_shortlist`` differ, in all and at unit directions (where the
+    gates are exact, so none may differ)."""
+    from raytracer_tpu_torch.core.v3 import V3
+    from raytracer_tpu_torch.ops import cuda_fold, cuda_hit, cuda_level
+
+    tables = cuda_fold.fused_tables(make_scene(("grid_sphere_scene", (1024,)), device))
+    o, d, w = frame_rays(width, height, device)
+    _, _, _, res = cuda_level.trace_levels(tables, o, d, w, depth, emit_res=True)
+    rows = []
+    for k in range(depth):
+        r = res[k]
+        lo, ld, lw = V3(*r[:3]), V3(*r[3:6]), r[6].contiguous()
+        t10, i10 = cuda_hit.fold_flat(tables, lo, ld)
+        t9, i9 = cuda_hit.fold_shortlist(tables, cuda_hit.shortlists(tables, lo, ld, lw), lo, ld, lw)
+        alive = lw > 0
+        norm = torch.sqrt(ld.x.double() ** 2 + ld.y.double() ** 2 + ld.z.double() ** 2)
+        non_unit = alive & ((norm - 1.0).abs() > 1e-6)
+        differ = alive & ((i10 != i9) | ~same_mask(t10, t9))
+        rows.append(dict(level=k + 1, alive=int(alive.sum()), non_unit=int(non_unit.sum()),
+                         differ=int(differ.sum()), differ_unit=int((differ & ~non_unit).sum())))
+    return rows
+
+
+def time_hit(spec, width: int, height: int, device, plain: bool = True) -> dict:
+    """Each closest-hit kernel's device time (``event_ms``) on one frame's
+    primary rays, its plain version's, and its bound on this run's data:
+    the bytes (each input plane and the shortlists read once, each output
+    plane written once) at 3.35 TB/s against ``fold_ops`` at 67 TFLOP/s."""
+    from raytracer_tpu_torch.ops import cuda_fold, cuda_hit
+
+    tables = cuda_fold.fused_tables(make_scene(spec, device))
+    o, d, w = frame_rays(width, height, device)
+    sl, listed = hit_inputs(tables, o, d, w)
+    t9, i9 = cuda_hit.fold_shortlist(tables, sl, o, d, w)
+    n = w.numel()
+    alive = (w > 0).cpu().numpy()
+    used = used_lanes(tables, o, d, w).cpu().numpy()
+    idx = i9.cpu().numpy()
+    sl_bytes = 4 * (int(sl[0].shape[0]) + int(sl[1].clamp_min(0).sum())) if sl is not None else 0
+    calls = {
+        "fold_flat": (lambda: cuda_hit.fold_flat(tables, o, d),
+                      lambda: cuda_hit.fold_flat_reference(tables, o, d), 4 * 8 * n, "flat"),
+        "fold_shortlist": (lambda: cuda_hit.fold_shortlist(tables, sl, o, d, w),
+                           lambda: cuda_hit.fold_shortlist_reference(tables, sl, o, d, w),
+                           4 * 9 * n + sl_bytes, "shortlist"),
+        "fold_shortlist_hit": (lambda: cuda_hit.fold_shortlist_hit(tables, sl, o, d, w),
+                               lambda: cuda_hit.fold_shortlist_hit_reference(tables, sl, o, d, w),
+                               4 * 23 * n + sl_bytes, "record"),
+    }
+    out = {}
+    for name, (kern, ref, nbytes, kind) in calls.items():
+        ops = fold_ops(tables, listed, idx, alive, used, kind)
+        out[name] = dict(
+            ms=event_ms(kern), plain_ms=event_ms(ref, iters=2, warmup=1) if plain else None,
+            bound_ms=max(nbytes / PEAK_BYTES_S, ops / PEAK_F32_S) * 1e3,
+            bound_by="bytes" if nbytes / PEAK_BYTES_S >= ops / PEAK_F32_S else "operations",
+            mbytes=nbytes / 1e6, gflop=ops / 1e9,
+            listed=float(listed.mean()) if tables.counts["n_c"] else 0.0,
+        )
+    return out
+
+
+def cutoff_sweep(device, width: int = 1920, height: int = 1080) -> list:
+    """The record in one launch of ``fold_shortlist_hit`` against the fold
+    kernel and ``hit_record`` in PyTorch (what ``closest_hit_soa`` runs
+    below ``_MM_GATHER_MIN_PRIMS``), each as a caller sees it (CUDA events,
+    nothing queued ahead, host work included, the shortlists' stats and
+    phase A in both), at 3, 65 and 1025 primitives."""
+    from raytracer_tpu_torch.models import scenes
+    from raytracer_tpu_torch.ops import cuda_hit
+    from raytracer_tpu_torch.ops.trace import hit_record, raygen_tile
+
+    camera = scenes.reference_demo_camera(device=device)
+    o, d = raygen_tile(camera, width, height)
+    rows = []
+    for spec in (("reference_demo_scene", ()), ("grid_sphere_scene", (64,)),
+                 ("grid_sphere_scene", (1024,))):
+        scene = make_scene(spec, device)
+        record = lambda: cuda_hit.hit_closest_shortlist(scene, o, d)  # noqa: E731
+        fold = lambda: hit_record(scene, o, d, *cuda_hit.fold_closest_shortlist(scene, o, d))  # noqa: E731
+        record()
+        fold()
+        times = {"record_ms": [], "fold_hit_record_ms": []}
+        for _ in range(3):  # in turns
+            times["record_ms"].append(_calls_ms(record, 10))
+            times["fold_hit_record_ms"].append(_calls_ms(fold, 10))
+        rows.append(dict(n_prim=scene.num_primitives,
+                         **{k: statistics.median(v) for k, v in times.items()},
+                         rounds=times))
+    return rows
+
+
+def drive_depth(device, spec, width: int, height: int, reference: bool) -> dict:
+    """``render_depth`` through the public entry point with every kernel's
+    launch count set to 0 just before and read just after, no plain version
+    on CUDA; the depth image's shape, inf share and finiteness, and with
+    ``reference`` the same pass through the plain fold on the card
+    (``closest_hit_soa`` with ``fold_closest``, the ``"jnp"`` selector): on
+    camera rays (unit directions) the gates drop nothing, so the two must
+    agree bit for bit."""
+    from raytracer_tpu_torch import render_depth
+    from raytracer_tpu_torch.models import scenes
+    from raytracer_tpu_torch.ops import cuda_fold, cuda_level
+    from raytracer_tpu_torch.ops.trace import closest_hit_soa, fold_closest, raygen_tile
+    from raytracer_tpu_torch.render.integrator import _row_chunks
+
+    scene = make_scene(spec, device)
+    camera = scenes.reference_demo_camera(device=device)
+    rows = _row_chunks(width, height, 0)
+    expect = hit_expect(scene, -(-height // rows),
+                        int(cuda_level.uses_shortlists(cuda_fold.fused_tables(scene))))
+    with PlainOnCuda() as plain, torch.no_grad():
+        reset_launches()
+        dep = render_depth(scene, camera, width, height, device=device)
+        torch.cuda.synchronize()
+        launches = read_launches()
+    inf = torch.isinf(dep)
+    out = dict(launches=launches, expect=expect, plain_calls=plain.calls, shape=tuple(dep.shape),
+               inf_share=float(inf.float().mean()),
+               finite_ok=bool((torch.isfinite(dep) | (inf & (dep > 0))).all()),
+               positive_ok=bool((dep[~inf] > 0).all()))
+    if reference:
+        o, d = raygen_tile(camera, width, height)
+        with torch.no_grad():
+            rec = closest_hit_soa(scene, o, d, fold_fn=fold_closest)
+        ref = torch.where(rec.hit, rec.t, torch.inf)
+        out["plain_equal"] = bool(torch.equal(dep, ref))
+        out["plain_max_abs_err"] = max_err(dep[~inf], ref[~inf])
+    out["ok"] = (launches == expect and plain.calls == 0 and out["finite_ok"]
+                 and out["positive_ok"] and out.get("plain_equal", True)
+                 and out["shape"] == (height, width))
+
+    def frame():
+        with torch.no_grad():
+            render_depth(scene, camera, width, height, device=device)
+
+    frame()
+    times = [_calls_ms(frame, 1) for _ in range(10)]
+    out.update(frame_ms=statistics.median(times), frame_ms_all=times)
+    return out
+
+
+def drive_fold_pass(device, spec, width: int, height: int) -> dict:
+    """A direct caller of the ``"pallas"`` selector's fold
+    (``resolve_fold_fn("pallas")``, ``cuda_hit.fold_closest_shortlist``):
+    (t, index) of every camera ray, as a picking or visibility pass asks
+    for them, with every kernel's launch count set to 0 just before and
+    read just after: one ``fold_shortlist`` launch (and one ``ray_stats``
+    where the scene has shortlists), no plain version on CUDA; the result
+    against the plain fold (``fold_closest``) on the card, bit for bit (unit
+    directions); the call's time."""
+    from raytracer_tpu_torch.models import scenes
+    from raytracer_tpu_torch.ops import cuda_fold, cuda_level
+    from raytracer_tpu_torch.ops.trace import fold_closest, raygen_tile, resolve_fold_fn
+
+    scene = make_scene(spec, device)
+    o, d = raygen_tile(scenes.reference_demo_camera(device=device), width, height)
+    fold = resolve_fold_fn("pallas")
+    stats = int(cuda_level.uses_shortlists(cuda_fold.fused_tables(scene)))
+    with PlainOnCuda() as plain, torch.no_grad():
+        reset_launches()
+        t, i = fold(scene, o, d)
+        torch.cuda.synchronize()
+        launches = read_launches()
+    t_ref, i_ref = fold_closest(scene, o, d)
+    out = dict(launches=launches, plain_calls=plain.calls, hits=int((i >= 0).sum()),
+               plain_equal=torch.equal(i, i_ref) and torch.equal(t, t_ref))
+    out["ok"] = (launches == launches_of(fold_shortlist=1, ray_stats=stats)
+                 and plain.calls == 0 and out["plain_equal"])
+    fold(scene, o, d)
+    out["call_ms"] = statistics.median([_calls_ms(lambda: fold(scene, o, d), 1)
+                                        for _ in range(10)])
+    return out
+
+
+def hit_expect(scene, n_calls: int, stats: int) -> dict:
+    """The launch counts of ``n_calls`` ``closest_hit_soa`` calls with the
+    default fold on ``scene``: the record kernel from
+    ``_MM_GATHER_MIN_PRIMS`` primitives up, else the fold kernel; one
+    ``ray_stats`` a call where the scene has shortlists (``stats``)."""
+    from raytracer_tpu_torch.ops import trace
+
+    kernel = ("fold_shortlist_hit" if scene.num_primitives >= trace._MM_GATHER_MIN_PRIMS
+              else "fold_shortlist")
+    return launches_of(**{kernel: n_calls}, ray_stats=stats * n_calls)
+
+
+def drive_flat_render(device, width: int = 1920, height: int = 1080, depth: int = 3) -> dict:
+    """``render(fold="pallas_flat")`` of sprint3 through the public entry
+    point: one ``fold_flat`` launch per level and no other kernel, no plain
+    version on CUDA; its image against ``render()``'s (the whole-trace
+    kernel) on the same frame; both frame times (``benchmark_render``)."""
+    from raytracer_tpu_torch import render
+    from raytracer_tpu_torch.models import scenes
+    from raytracer_tpu_torch.utils.profiler import benchmark_render
+
+    scene = scenes.sprint3_scene(device=device)
+    camera = scenes.reference_demo_camera(device=device)
+    with PlainOnCuda() as plain, torch.no_grad():
+        reset_launches()
+        img = render(scene, camera, width, height, depth=depth, fold="pallas_flat", device=device)
+        torch.cuda.synchronize()
+        launches = read_launches()
+    ref = render(scene, camera, width, height, depth=depth, device=device)
+    equal = same_mask(img, ref).all(dim=-1)
+    out = dict(launches=launches, plain_calls=plain.calls, image=image_stats(img),
+               equal_frac=float(equal.float().mean()),
+               max_abs_err=float((img - ref).abs().nan_to_num(0.0).max()))
+    out["ok"] = (launches == launches_of(fold_flat=depth + 1) and plain.calls == 0
+                 and out["image"]["nonfinite"] == 0 and out["image"]["range_ok"]
+                 and out["equal_frac"] >= 0.9999 and out["max_abs_err"] <= 1e-5)
+    for fold in ("pallas_flat", "auto"):
+        out[f"frame_ms_{fold}"] = benchmark_render(scene, camera, width, height, depth=depth,
+                                                   iters=20, fold=fold)["frame_ms"]
+    return out
+
+
+def drive_hit_loop(device, width: int = 1920, height: int = 1080, depth: int = 3) -> dict:
+    """The per-level bounce loop around ``closest_hit_soa`` (``render_tile``
+    with a ``closest_hit_fn``, the port's counterpart of the JAX
+    ``trace_soa(closest_hit_fn=...)``) on grid-1024: the shortlist-hit
+    kernel and one ``ray_stats`` per level, no other kernel, no plain
+    version on CUDA. Its image against the default route's (the per-level
+    trace kernels) on the same frame; then the gradient of the large-scene
+    fit's loss (``level_fit_start``) with respect to the sphere centres and
+    colours through ``_ShortlistHit`` (its backward: autograd of the record
+    math) against the default route's (``_LevelTrace``, the backward
+    kernel), within 1e-3 of each leaf's largest entry (the hand-derived
+    adjoint and autograd round apart, and the gather's backward adds in a
+    varying order); both frame times."""
+    from raytracer_tpu_torch import default_params, merge_params, render
+    from raytracer_tpu_torch.ops.tonemap import reinhard_tonemap
+    from raytracer_tpu_torch.ops.trace import closest_hit_soa, render_tile
+
+    def hit_fn(sc, o, d, active=None):
+        return closest_hit_soa(sc, o, d, active=active)
+
+    def loop_render(sc, camera):
+        return reinhard_tonemap(render_tile(sc, camera, width, height, depth=depth,
+                                            closest_hit_fn=hit_fn).stacked())
+
+    start, camera, target = level_fit_start(device, width, height)
+    with PlainOnCuda() as plain, torch.no_grad():
+        reset_launches()
+        img = loop_render(start, camera)
+        torch.cuda.synchronize()
+        launches = read_launches()
+    expect = hit_expect(start, depth + 1, 1)
+    ref = render(start, camera, width, height, depth=depth, device=device)
+    equal = same_mask(img, ref).all(dim=-1)
+    out = dict(launches=launches, expect=expect, plain_calls=plain.calls,
+               image=image_stats(img), equal_frac=float(equal.float().mean()))
+
+    params = {k: v.detach().clone().requires_grad_(True)
+              for k, v in default_params(start).items()}
+    grads = {}
+    for route in ("loop", "default"):
+        sc = merge_params(start, params)
+        reset_launches()
+        img_g = (loop_render(sc, camera) if route == "loop"
+                 else render(sc, camera, width, height, depth=depth, device=device))
+        loss = torch.mean((img_g - target) ** 2)
+        grads[route] = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+        torch.cuda.synchronize()
+        out[f"grad_launches_{route}"] = read_launches()
+        out[f"loss_{route}"] = float(loss.detach())
+    rel = {k: float((grads["loop"][k] - g).abs().max()) / max(float(g.abs().max()), 1e-30)
+           for k, g in grads["default"].items()}
+    out.update(grad_rel_err=rel, grad_scale={k: float(g.abs().max())
+                                             for k, g in grads["default"].items()},
+               grad_finite=all(bool(torch.isfinite(g).all()) for g in grads["loop"].values()))
+    out["ok"] = (launches == expect and plain.calls == 0 and out["equal_frac"] >= 0.999
+                 and out["grad_launches_loop"] == expect and out["grad_finite"]
+                 and all(v <= 1e-3 for v in rel.values()))
+
+    def loop_frame():
+        with torch.no_grad():
+            loop_render(start, camera)
+
+    def default_frame():
+        with torch.no_grad():
+            render(start, camera, width, height, depth=depth, device=device)
+
+    for name, fn in (("loop", loop_frame), ("default", default_frame)):
+        fn()
+        out[f"frame_ms_{name}"] = statistics.median([_calls_ms(fn, 1) for _ in range(10)])
+    return out
+
+
+def print_hit(r: dict):
+    def rays(x):
+        return (f"ok={x['ok']} alive={x['alive']} hits={x['hits']} flat_same={x['flat_same']} "
+                f"shortlist_same={x['shortlist_same']} record_same={x['record_same']} "
+                f"record_index_is_fold={x['record_index_is_fold']} dead_miss={x['dead_miss']} "
+                f"flat_vs_shortlist_differ={x['flat_vs_shortlist_differ']} "
+                f"(at unit directions {x['flat_vs_shortlist_differ_unit']}; "
+                f"non-unit alive lanes {x['non_unit_alive']})")
+
+    print(f"closest-hit {r['name']} ({r['n_prim']} primitives, {r['n_c']} chunks): ok={r['ok']} "
+          f"all_dead_ok={r['all_dead_ok']} primary: {rays(r['primary'])}; "
+          f"bounce: {rays(r['bounce'])}", flush=True)
+
+
 def print_level(r: dict):
     print(
         f"per-level {r['name']}: ok={r['ok']} n_c={r['n_c']} shortlists={r['per_tile']} "
@@ -1589,7 +2089,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     kernels_built = ["trace_whole", "trace_whole_bwd", "ray_stats", "trace_level",
-                     "trace_level_bwd", "soft_level", "soft_level_bwd"]
+                     "trace_level_bwd", "soft_level", "soft_level_bwd", "fold_flat",
+                     "fold_shortlist"]
     _build.build(kernels_built)
     print(f"build: {', '.join(kernels_built)} {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -1813,6 +2314,77 @@ def main() -> int:
               f"step_ms={fit_n['step_ms']:.4f} (all {[round(v, 4) for v in fit_n['step_ms_all']]})",
               flush=True)
 
+    # ---- the closest-hit API: render_depth, render(fold=...), the per-level
+    # loop around closest_hit_soa (kernels 8-10) ----
+    hit_results = []
+    for case in HIT_CASES:
+        r = check_hit(case, "cuda")
+        hit_results.append(r)
+        ok &= r["ok"]
+        print_hit(r)
+    for row in flat_canary("cuda"):
+        ok &= row["differ_unit"] == 0
+        print(f"fold_flat vs fold_shortlist, grid1024 1920x1080 bounce level {row['level']}: "
+              f"alive={row['alive']} non_unit_directions={row['non_unit']} "
+              f"differing_lanes={row['differ']} (at unit directions {row['differ_unit']})",
+              flush=True)
+    hit_times = {}
+    for name, spec, width, height in HIT_TIME_CASES:
+        hit_times[name] = time_hit(spec, width, height, "cuda")
+        print(f"closest-hit times {name} (ms per launch, CUDA events; primary rays): "
+              + " ".join(f"{k} {v['ms']:.4f} (bound {v['bound_ms']:.4f} {v['bound_by']}: "
+                         f"{v['mbytes']:.1f} MB, {v['gflop']:.3g} GFLOP, listed chunks "
+                         f"{v['listed']:.2f}; plain {v['plain_ms']:.2f})"
+                         for k, v in hit_times[name].items()), flush=True)
+    for row in cutoff_sweep("cuda"):
+        print(f"cut-off sweep 1920x1080 primary rays, {row['n_prim']} primitives: "
+              f"fold_shortlist_hit call {row['record_ms']:.4f} ms, fold_shortlist + hit_record "
+              f"call {row['fold_hit_record_ms']:.4f} ms (rounds {row['rounds']})", flush=True)
+    depth_paths = {}
+    for name, spec, width, height, reference in (
+            ("c1_demo_320x240", ("reference_demo_scene", ()), 320, 240, True),
+            ("grid1024_1920x1080", ("grid_sphere_scene", (1024,)), 1920, 1080, True),
+            ("c5_grid1024_3840x2160", ("grid_sphere_scene", (1024,)), 3840, 2160, False)):
+        r = drive_depth("cuda", spec, width, height, reference)
+        depth_paths[name] = r
+        ok &= r["ok"]
+        print(f"main path render_depth {name}: launches={r['launches']} ok={r['ok']} "
+              f"plain_calls_on_cuda={r['plain_calls']} shape={r['shape']} "
+              f"inf_share={r['inf_share']:.4f} "
+              + (f"plain_fold_equal={r['plain_equal']} plain_max_abs_err="
+                 f"{r['plain_max_abs_err']:.3g} " if reference else "")
+              + f"frame_ms={r['frame_ms']:.4f} (all {[round(v, 4) for v in r['frame_ms_all']]})",
+              flush=True)
+    fold_passes = {}
+    for name, spec, width, height in (
+            ("c1_demo_320x240", ("reference_demo_scene", ()), 320, 240),
+            ("grid1024_1920x1080", ("grid_sphere_scene", (1024,)), 1920, 1080)):
+        r = drive_fold_pass("cuda", spec, width, height)
+        fold_passes[name] = r
+        ok &= r["ok"]
+        print(f"main path fold pass (resolve_fold_fn('pallas'), (t, index)) {name}: "
+              f"launches={r['launches']} ok={r['ok']} plain_calls_on_cuda={r['plain_calls']} "
+              f"hits={r['hits']} plain_fold_equal={r['plain_equal']} "
+              f"call_ms={r['call_ms']:.4f}", flush=True)
+    flat = drive_flat_render("cuda")
+    ok &= flat["ok"]
+    print(f"main path render(fold='pallas_flat') sprint3 1920x1080 d3: launches={flat['launches']} "
+          f"ok={flat['ok']} plain_calls_on_cuda={flat['plain_calls']} image={flat['image']} "
+          f"equal_to_default_frac={flat['equal_frac']} max_abs_err={flat['max_abs_err']:.3g} "
+          f"frame_ms pallas_flat={flat['frame_ms_pallas_flat']:.4f} "
+          f"default={flat['frame_ms_auto']:.4f}", flush=True)
+    loop = drive_hit_loop("cuda")
+    ok &= loop["ok"]
+    print(f"main path per-level loop (closest_hit_soa, _ShortlistHit) grid1024 1920x1080 d3: "
+          f"launches={loop['launches']} ok={loop['ok']} plain_calls_on_cuda={loop['plain_calls']} "
+          f"image={loop['image']} equal_to_default_frac={loop['equal_frac']} "
+          f"gradient: launches={loop['grad_launches_loop']} (default route "
+          f"{loop['grad_launches_default']}) loss={loop['loss_loop']:.6g} (default "
+          f"{loop['loss_default']:.6g}) rel_err={ {k: float(f'{v:.3g}') for k, v in loop['grad_rel_err'].items()} } "
+          f"max|grad|={ {k: float(f'{v:.3g}') for k, v in loop['grad_scale'].items()} } "
+          f"frame_ms loop={loop['frame_ms_loop']:.4f} default={loop['frame_ms_default']:.4f}",
+          flush=True)
+
     guards = check_guards("cuda")
     ok &= all(guards.values())
     print(f"guards (per-level route on CUDA, gradient paths run, refused launch raises): "
@@ -1920,6 +2492,36 @@ def main() -> int:
         "library_ms": None,
         "check": all(r["bwd_ok"] for r in soft_results),
     }]
+    d1080, c1_depth = depth_paths["grid1024_1920x1080"], depth_paths["c1_demo_320x240"]
+    t_flat = hit_times["sprint3_1920x1080"]["fold_flat"]
+    t_sl = hit_times["c1_demo_320x240"]["fold_shortlist"]
+    t_rec = hit_times["grid1024_1920x1080"]["fold_shortlist_hit"]
+    hit_paths = {"render_depth_c1": c1_depth["launches"],
+                 "render_depth_grid1024": d1080["launches"],
+                 "render_depth_c5": depth_paths["c5_grid1024_3840x2160"]["launches"],
+                 "render_pallas_flat_sprint3": flat["launches"],
+                 "loop_grid1024": loop["launches"],
+                 "fold_pass_c1": fold_passes["c1_demo_320x240"]["launches"],
+                 "fold_pass_grid1024": fold_passes["grid1024_1920x1080"]["launches"]}
+    for name, source, line, t, where in (
+            ("fold_flat", "fold_flat.cu", 181, t_flat, "sprint3_1920x1080"),
+            ("fold_shortlist", "fold_shortlist.cu", 1000, t_sl, "c1_demo_320x240"),
+            ("fold_shortlist_hit", "fold_shortlist.cu", 1370, t_rec, "grid1024_1920x1080")):
+        by_path = {k: v[name] for k, v in hit_paths.items() if v[name]}
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"raytracer_tpu_torch/csrc/{source}",
+            "replaces": f"raytracer_tpu/ops/pallas_fold.py:{line}",
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": max(r[{"fold_flat": "flat_err", "fold_shortlist": "shortlist_err",
+                                  "fold_shortlist_hit": "record_err"}[name]]
+                               for r in hit_results),
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "timed_on": where,
+            "ms_by_frame": {k: v[name]["ms"] for k, v in hit_times.items()},
+            "bound_ms_by_frame": {k: v[name]["bound_ms"] for k, v in hit_times.items()},
+            "library_ms": None,
+            "check": all(r["ok"] for r in hit_results),
+        })
     print(json.dumps({"kernels": kernels}), flush=True)
     if not ok:
         print("chip_smoke: a check failed", file=sys.stderr)

@@ -8,9 +8,13 @@ scenes and deep traces through the per-level chain (``ops/cuda_level.py``:
 ``csrc/ray_stats.cu``, ``csrc/trace_level.cu``, ``csrc/trace_level_bwd.cu``);
 the soft differentiable renderer for geometry fits (``diff/soft.py``:
 ``render_soft``, one soft level per launch of ``csrc/soft_level.cu``, its
-backward ``csrc/soft_level_bwd.cu``, ``ops/cuda_soft.py``); and the fit step
-(``parallel/train.py``, hard or soft). Entry points run on CUDA unless called
-with ``device="cpu"``, which runs the kernels' plain PyTorch versions.
+backward ``csrc/soft_level_bwd.cu``, ``ops/cuda_soft.py``); the closest-hit
+API (``closest_hit_soa``, the depth pass ``render_depth`` and the fold
+selectors of ``render(fold=...)``) through the fold kernels
+``csrc/fold_shortlist.cu`` and ``csrc/fold_flat.cu`` (``ops/cuda_hit.py``);
+and the fit step (``parallel/train.py``, hard or soft). Entry points run on
+CUDA unless called with ``device="cpu"``, which runs the kernels' plain
+PyTorch versions.
 """
 
 from raytracer_tpu_torch.core.types import (
@@ -27,10 +31,13 @@ from raytracer_tpu_torch.core.types import (
 from raytracer_tpu_torch.core.v3 import V3
 from raytracer_tpu_torch.diff.soft import render_soft, trace_soft
 from raytracer_tpu_torch.parallel.train import default_params, make_fit_step, merge_params
-from raytracer_tpu_torch.render.integrator import render, trace_rays
+from raytracer_tpu_torch.ops.trace import closest_hit_soa
+from raytracer_tpu_torch.render.integrator import render, render_depth, trace_rays
 
 __all__ = [
     "render",
+    "render_depth",
+    "closest_hit_soa",
     "trace_rays",
     "render_soft",
     "trace_soft",

@@ -1,11 +1,11 @@
 // Device code shared by the trace kernels: the packed scene table's layout,
-// the closest-hit fold (walls, boxes, gated sphere chunks), one level's
-// shading and bounce, the per-tile reach statistics of the per-level chain,
-// and the adjoint of one level.
+// the closest-hit fold (walls, boxes, gated sphere chunks), the winner's
+// record, one level's shading and bounce, the per-tile reach statistics of
+// the per-level chain, and the adjoint of one level.
 //
 // Included by trace_whole.cu, trace_whole_bwd.cu, ray_stats.cu,
-// trace_level.cu and trace_level_bwd.cu; ops/_build.py keys each library on
-// its .cu and the headers it includes. Every function follows the plain
+// trace_level.cu, trace_level_bwd.cu, fold_flat.cu and fold_shortlist.cu;
+// ops/_build.py keys each library on its .cu and the headers it includes. Every function follows the plain
 // PyTorch version in raytracer_tpu_torch/ops/cuda_fold.py op for op: build
 // with -fmad=false and without fast math, so each product and sum rounds once
 // as a separate PyTorch op does, and a sphere miss is rejected through the
@@ -218,18 +218,24 @@ __device__ __forceinline__ bool chunk_gate(const Tab& T, int c, const Ray& r, co
   return t1 >= t0 && dist2 <= T.cc(10, c);
 }
 
+// The near root of one sphere (center c, cr2 = |c|^2 - r^2) for a unit
+// direction: NaN on a miss, which fails every compare.
+__device__ __forceinline__ float sphere_t(float cx, float cy, float cz, float cr2, const Ray& r,
+                                          const RayTerms& q) {
+  float s = r.dx * cx + r.dy * cy + r.dz * cz;
+  float m = r.ox * cx + r.oy * cy + r.oz * cz;
+  float b_half = q.dod - s;
+  float c_full = q.oo - 2.0f * m + cr2;
+  float disc = b_half * b_half - c_full;
+  return -b_half - sqrtf(disc);
+}
+
 // The spheres of chunk c into (bt, bi), ties to the lower global index.
 __device__ __forceinline__ void fold_chunk(const Tab& T, int c, const Ray& r, const RayTerms& q,
                                            float& bt, int& bi) {
   const int i1 = min((c + 1) * T.unroll, T.n_s);
   for (int i = c * T.unroll; i < i1; ++i) {
-    float cx = T.sc(0, i), cy = T.sc(1, i), cz = T.sc(2, i);
-    float s = r.dx * cx + r.dy * cy + r.dz * cz;
-    float m = r.ox * cx + r.oy * cy + r.oz * cz;
-    float b_half = q.dod - s;
-    float c_full = q.oo - 2.0f * m + T.sc(3, i);
-    float disc = b_half * b_half - c_full;
-    float tt = -b_half - sqrtf(disc);  // NaN on a miss
+    float tt = sphere_t(T.sc(0, i), T.sc(1, i), T.sc(2, i), T.sc(3, i), r, q);
     if (tt > 0.0f && (tt < bt || (tt == bt && i < bi))) {
       bt = tt;
       bi = i;
@@ -251,30 +257,18 @@ __device__ __forceinline__ float light_term(
   return diffuse * dif + specular * spe;
 }
 
-// One level after the fold found (bt, bi) for an alive lane: the winner
-// record, Blinn-Phong shading or the sky, the accumulator increment and the
-// mirror bounce. Updates the ray, the throughput and the accumulator in
-// place and returns the level's t (the fold's t on a miss).
-__device__ __forceinline__ float shade_bounce(const Tab& T, float bt, int bi, bool is_last,
-                                              const RayTerms& q, Ray& r, float& w, float& accr,
-                                              float& accg, float& accb) {
+// The winner's record after the fold found (bt, bi) with bi >= 0: its t
+// (recomputed in the full form; at a sphere graze with det <= 0 and at a
+// wall parallel to the ray the fold's t stands), hit point and normal, op
+// for op `_record_math` in ops/cuda_fold.py.
+struct HitRec {
+  float tt, hpx, hpy, hpz, hnx, hny, hnz;
+};
+
+__device__ __forceinline__ HitRec winner_record(const Tab& T, float bt, int bi, const Ray& r,
+                                                const RayTerms& q) {
   const float ox = r.ox, oy = r.oy, oz = r.oz, dx = r.dx, dy = r.dy, dz = r.dz;
   const int wall_base = T.n_s, box_base = T.n_s + T.n_w;
-  const float* sky = T.sky;
-  const bool hit = bt < MISS_T;
-  float z = dz;
-  float grad = z > 0.0f ? expf(sky[9] * logf(z)) : 0.0f;
-  float skr = z < 0.0f ? sky[6] : sky[0] + (sky[3] - sky[0]) * grad;
-  float skg = z < 0.0f ? sky[7] : sky[1] + (sky[4] - sky[1]) * grad;
-  float skb = z < 0.0f ? sky[8] : sky[2] + (sky[5] - sky[2]) * grad;
-  if (!hit) {
-    accr = accr + skr * w;
-    accg = accg + skg * w;
-    accb = accb + skb * w;
-    w = 0.0f;  // w * (hit ? met : 0)
-    return bt;
-  }
-
   float tt = bt;
   float hpx, hpy, hpz, hnx, hny, hnz;
   if (bi < wall_base) {
@@ -315,6 +309,35 @@ __device__ __forceinline__ float shade_bounce(const Tab& T, float bt, int bi, bo
     hny = by ? -sgn(dy) : 0.0f;
     hnz = bz ? -sgn(dz) : 0.0f;
   }
+  return HitRec{tt, hpx, hpy, hpz, hnx, hny, hnz};
+}
+
+// One level after the fold found (bt, bi) for an alive lane: the winner
+// record, Blinn-Phong shading or the sky, the accumulator increment and the
+// mirror bounce. Updates the ray, the throughput and the accumulator in
+// place and returns the level's t (the fold's t on a miss).
+__device__ __forceinline__ float shade_bounce(const Tab& T, float bt, int bi, bool is_last,
+                                              const RayTerms& q, Ray& r, float& w, float& accr,
+                                              float& accg, float& accb) {
+  const float dx = r.dx, dy = r.dy, dz = r.dz;
+  const float* sky = T.sky;
+  const bool hit = bt < MISS_T;
+  float z = dz;
+  float grad = z > 0.0f ? expf(sky[9] * logf(z)) : 0.0f;
+  float skr = z < 0.0f ? sky[6] : sky[0] + (sky[3] - sky[0]) * grad;
+  float skg = z < 0.0f ? sky[7] : sky[1] + (sky[4] - sky[1]) * grad;
+  float skb = z < 0.0f ? sky[8] : sky[2] + (sky[5] - sky[2]) * grad;
+  if (!hit) {
+    accr = accr + skr * w;
+    accg = accg + skg * w;
+    accb = accb + skb * w;
+    w = 0.0f;  // w * (hit ? met : 0)
+    return bt;
+  }
+
+  const HitRec h = winner_record(T, bt, bi, r, q);
+  const float tt = h.tt, hpx = h.hpx, hpy = h.hpy, hpz = h.hpz;
+  const float hnx = h.hnx, hny = h.hny, hnz = h.hnz;
 
   const float* P = T.P;
   const float* U = T.U;

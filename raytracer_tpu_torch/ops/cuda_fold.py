@@ -171,10 +171,9 @@ def _packed_mat_tables(scene: Scene) -> dict:
     }
 
 
-def _light_sky_tables(scene: Scene) -> dict:
-    """Point lights, sun lights (directions made unit here) and the ten sky
-    scalars."""
-    lights, sky = scene.lights, scene.sky
+def _light_cols(lights) -> dict:
+    """Point lights and sun lights (directions made unit here), one column
+    per component."""
     lp, lc, sc = lights.point_position, lights.point_color, lights.sun_color
     sd = lights.sun_direction
     if sd.shape[0]:
@@ -185,11 +184,21 @@ def _light_sky_tables(scene: Scene) -> dict:
         (("sdx", "sdy", "sdz"), sd), (("scr", "scg", "scb"), sc),
     ):
         out.update({n: a[:, k] for k, n in enumerate(names)})
-    out["sky"] = torch.cat([
+    return out
+
+
+def _sky_vector(sky) -> torch.Tensor:
+    """The ten sky scalars: horizon rgb, zenith rgb, ground rgb, exponent."""
+    return torch.cat([
         sky.horizon_color, sky.zenith_color, sky.ground_color,
         sky.gradient_exponent.reshape(1),
     ])
-    return out
+
+
+def _light_sky_tables(scene: Scene) -> dict:
+    """Point lights, sun lights (directions made unit here) and the ten sky
+    scalars."""
+    return {**_light_cols(scene.lights), "sky": _sky_vector(scene.sky)}
 
 
 def _chunk_culling_tables(scene: Scene, unroll: int) -> dict:
@@ -360,7 +369,7 @@ def _chunk_gate(t: dict, gate: int, c, o: V3, d: V3, iv, oo, do, t0, t1):
     return (t1 >= t0) & (dist2 <= t["gr2"][c])
 
 
-def _fold(t: dict, counts: dict, o: V3, d: V3, shortlist=None):
+def _fold(t: dict, counts: dict, o: V3, d: V3, shortlist=None, gated: bool = True):
     """(best t, best global index) of every ray; ``(MISS_T, -1)`` on a miss.
 
     The kernels fold walls, then boxes with a strict ``<``, then sphere
@@ -375,6 +384,8 @@ def _fold(t: dict, counts: dict, o: V3, d: V3, shortlist=None):
     tile's chunk order ``[..., n_c]`` and its length ``[...]`` (-1 for a
     dead tile); the lane walks those chunks in that order. Without it every
     lane walks all chunks in index order, as the whole-trace kernel does.
+    With ``gated=False`` every lane folds every sphere, with no slab clip
+    and no chunk gate (the brute-force fold of csrc/fold_flat.cu).
     """
     ox, oy, oz = o
     dx, dy, dz = d
@@ -426,26 +437,25 @@ def _fold(t: dict, counts: dict, o: V3, d: V3, shortlist=None):
 
     oo = ox * ox + oy * oy + oz * oz
     do = dx * ox + dy * oy + dz * oz
-    t0, t_ex, seg_ok = _slab_segment(t, o, iv)
+    if gated:
+        t0, t_ex, seg_ok = _slab_segment(t, o, iv)
     unroll = counts["unroll"]
     if shortlist is not None:
         lists, n_list = shortlist
         pos = torch.arange(unroll, device=dx.device).view(-1, *([1] * nd))
     for k in range(counts["n_c"]):
-        t1 = torch.minimum(t_ex, bt)
         if shortlist is None:
-            c, listed = k, seg_ok
+            c = k
             sl = slice(k * unroll, min((k + 1) * unroll, n_s))
             cx, cy, cz, cr2 = col("cx", sl), col("cy", sl), col("cz", sl), col("cr2", sl)
             base, real = sl.start, None
         else:
-            c, listed = lists[..., k], seg_ok & (k < n_list)
+            c = lists[..., k]
             gi = c * unroll + pos  # [unroll, ...] global sphere indices
             real = gi < n_s
             gi = gi.clamp_max(n_s - 1)
             cx, cy, cz, cr2 = (t[n][gi] for n in ("cx", "cy", "cz", "cr2"))
             base = c * unroll
-        reach = _chunk_gate(t, counts["gate"], c, o, d, iv, oo, do, t0, t1)
         s = dx * cx + dy * cy + dz * cz
         m = ox * cx + oy * cy + oz * cz
         b_half = do - s
@@ -456,7 +466,11 @@ def _fold(t: dict, counts: dict, o: V3, d: V3, shortlist=None):
         if real is not None:
             ok = ok & real
         ct, ci = _lexmin(torch.where(ok, tt, MISS_T), base)
-        win = listed & reach & (ci >= 0) & ((ct < bt) | ((ct == bt) & (ci < bi)))
+        win = (ci >= 0) & ((ct < bt) | ((ct == bt) & (ci < bi)))
+        if gated:
+            listed = seg_ok if shortlist is None else seg_ok & (k < n_list)
+            t1 = torch.minimum(t_ex, bt)
+            win = win & listed & _chunk_gate(t, counts["gate"], c, o, d, iv, oo, do, t0, t1)
         bt, bi = torch.where(win, ct, bt), torch.where(win, ci, bi)
     return bt, bi
 
@@ -471,13 +485,19 @@ def _attr_columns(t: dict, counts: dict) -> list:
     return geom + [t[name] for name in _MAT_COLS]
 
 
-def _ls_vector(t: dict) -> torch.Tensor:
-    """Light and sky scalars in the kernels' packing order: 6 per point
-    light (position xyz, colour rgb), 6 per sun (unit direction xyz, colour
-    rgb), then the 10 sky scalars."""
+def _light_vector(t: dict) -> torch.Tensor:
+    """Light scalars in the kernels' packing order: 6 per point light
+    (position xyz, colour rgb), then 6 per sun (unit direction xyz, colour
+    rgb)."""
     pt = torch.stack([t[n] for n in ("lpx", "lpy", "lpz", "lcr", "lcg", "lcb")], dim=1)
     sun = torch.stack([t[n] for n in ("sdx", "sdy", "sdz", "scr", "scg", "scb")], dim=1)
-    return torch.cat([pt.reshape(-1), sun.reshape(-1), t["sky"]])
+    return torch.cat([pt.reshape(-1), sun.reshape(-1)])
+
+
+def _ls_vector(t: dict) -> torch.Tensor:
+    """Light and sky scalars in the kernels' packing order: the lights
+    (``_light_vector``), then the 10 sky scalars."""
+    return torch.cat([_light_vector(t), t["sky"]])
 
 
 def attribute_tables(scene: Scene) -> tuple[torch.Tensor, torch.Tensor]:
@@ -589,26 +609,17 @@ def _record_math(acc, t_sel, hit, is_s, is_w, is_b, o: V3, d: V3):
     return tt, V3(hpx, hpy, hpz), V3(hnx, hny, hnz)
 
 
-def _level_math(acc, o: V3, d: V3, w, t_sel, hit, is_s, is_w, is_b,
-                ls: torch.Tensor, counts: dict, is_last: bool):
-    """One level's differentiable math at fixed selections: winner record,
-    Blinn-Phong shading, sky, accumulator increment and mirror bounce.
-
-    A function of the gathered attributes ``acc``, the rays, the throughput
-    ``w`` and the light/sky scalars ``ls``; ``t_sel`` and the masks are
-    constants. The forward (``_level``) and the backward's plain version
-    (``trace_whole_bwd_reference``) both run it, so the gradient is that
-    of the forward's own arithmetic. Returns ``(t_out, increment V3,
-    w_next, o_next V3, d_next V3)``.
-    """
-    dx, dy, dz = d
-    tt, hp, hn = _record_math(acc, t_sel, hit, is_s, is_w, is_b, o, d)
+def _shade(mats, hp: V3, hn: V3, view: V3, lights: torch.Tensor, n_pt: int, n_sun: int) -> V3:
+    """Blinn-Phong colour at each hit point: ``color * (light sum +
+    ambient)``, the light sum over ``n_pt`` point lights and ``n_sun`` suns
+    (``lights`` in ``_light_vector`` order; the sky scalars may follow).
+    ``mats`` are the 8 gathered material planes (colour rgb, ambient,
+    metallic, diffuse, specular, exponent), ``view`` the direction towards
+    the eye (``-d``)."""
     hpx, hpy, hpz = hp
     hnx, hny, hnz = hn
-    colr, colg, colb, amb, met, dif, spe, exq = acc[6:]
-
-    # Blinn-Phong shading.
-    vwx, vwy, vwz = -dx, -dy, -dz
+    colr, colg, colb, amb, _, dif, spe, exq = mats
+    vwx, vwy, vwz = view
 
     def light_terms(lx, ly, lz):
         diffuse = max_c(lx * hnx + ly * hny + lz * hnz, 0.0)
@@ -621,12 +632,11 @@ def _level_math(acc, o: V3, d: V3, w, t_sel, hit, is_s, is_w, is_b,
         )
         return diffuse * dif + specular * spe
 
-    n_pt, n_sun = counts["n_pt"], counts["n_sun"]
-    ir = torch.zeros_like(w)
-    ig = torch.zeros_like(w)
-    ib = torch.zeros_like(w)
+    ir = torch.zeros_like(hpx)
+    ig = torch.zeros_like(hpx)
+    ib = torch.zeros_like(hpx)
     for li in range(n_pt):
-        px, py, pz, cr, cg, cb = ls[6 * li:6 * li + 6]
+        px, py, pz, cr, cg, cb = lights[6 * li:6 * li + 6]
         ldx = px - hpx
         ldy = py - hpy
         ldz = pz - hpz
@@ -637,23 +647,48 @@ def _level_math(acc, o: V3, d: V3, w, t_sel, hit, is_s, is_w, is_b,
         ig = ig + cg * term
         ib = ib + cb * term
     for si in range(n_sun):
-        sx, sy, sz, cr, cg, cb = ls[6 * (n_pt + si):6 * (n_pt + si) + 6]
+        sx, sy, sz, cr, cg, cb = lights[6 * (n_pt + si):6 * (n_pt + si) + 6]
         term = light_terms(sx, sy, sz)
         ir = ir + cr * term
         ig = ig + cg * term
         ib = ib + cb * term
-    local = V3(colr * (ir + amb), colg * (ig + amb), colb * (ib + amb))
+    return V3(colr * (ir + amb), colg * (ig + amb), colb * (ib + amb))
 
-    # Sky: ground below the horizon, a power gradient above.
-    sky = ls[6 * (n_pt + n_sun):]
+
+def _sky(dz: torch.Tensor, sky: torch.Tensor) -> V3:
+    """The sky seen along directions of z component ``dz``: the ground
+    colour below the horizon, a power gradient from horizon to zenith above
+    (``sky``: the 10 scalars of ``_sky_vector``)."""
     z = dz
     grad = torch.where(
         z > 0.0, torch.exp(sky[9] * torch.log(torch.where(z > 0.0, z, 1.0))), 0.0
     )
-    sk = V3(*(
+    return V3(*(
         torch.where(z < 0.0, sky[6 + k], sky[k] + (sky[3 + k] - sky[k]) * grad)
         for k in range(3)
     ))
+
+
+def _level_math(acc, o: V3, d: V3, w, t_sel, hit, is_s, is_w, is_b,
+                ls: torch.Tensor, counts: dict, is_last: bool):
+    """One level's differentiable math at fixed selections: winner record
+    (``_record_math``), Blinn-Phong shading (``_shade``), sky (``_sky``),
+    accumulator increment and mirror bounce.
+
+    A function of the gathered attributes ``acc``, the rays, the throughput
+    ``w`` and the light/sky scalars ``ls``; ``t_sel`` and the masks are
+    constants. The forward (``_level``) and the backward's plain version
+    (``trace_whole_bwd_reference``) both run it, so the gradient is that
+    of the forward's own arithmetic. Returns ``(t_out, increment V3,
+    w_next, o_next V3, d_next V3)``.
+    """
+    dx, dy, dz = d
+    tt, hp, hn = _record_math(acc, t_sel, hit, is_s, is_w, is_b, o, d)
+    hnx, hny, hnz = hn
+    met = acc[10]
+    n_pt, n_sun = counts["n_pt"], counts["n_sun"]
+    local = _shade(acc[6:], hp, hn, V3(-dx, -dy, -dz), ls, n_pt, n_sun)
+    sk = _sky(dz, ls[6 * (n_pt + n_sun):])
 
     hc = local if is_last else local * (1.0 - met)
     inc = V3.where(hit & (w > 0.0), hc, sk) * w

@@ -1,0 +1,325 @@
+"""The closest-hit kernels: the folds and the hit record of ``closest_hit_soa``.
+
+Three CUDA kernels serve the closest-hit API (``ops/trace.py``:
+``closest_hit_soa``, ``render_depth``, ``trace_soa`` with a fold or a
+closest-hit function):
+
+- ``fold_flat`` launches csrc/fold_flat.cu: the brute-force fold, (min t,
+  argmin global index) of every ray over every sphere, wall and box, with
+  no gate; ``fold="pallas_flat"``.
+- ``fold_shortlist`` launches csrc/fold_shortlist.cu: the fold of each
+  16x16 tile of an ``[H, W]`` frame over its chunk shortlist, each listed
+  chunk behind the lane's own gate, as the per-level chain folds; returns
+  (t, index); ``fold="pallas"``.
+- ``fold_shortlist_hit`` launches the same source with its record: the fold,
+  then the winner's attributes regathered by index and its record math; it
+  returns the 16 planes of the hit record (t recomputed, index, point,
+  normal, colour, ambient, metallic, diffuse, specular, exponent).
+
+Each has its plain PyTorch version (``*_reference``), built from the
+per-level chain's plain fold (``cuda_fold._fold``) and its record math
+(``_gather``, ``_kinds``, ``_record_math``); the wrapper runs it for CPU
+tensors and launches the kernel for CUDA tensors, or raises. Each wrapper
+counts its launches in ``.launches``. A lane whose alive plane ``w`` is 0
+is dead: both versions give it a miss record, ``(MISS_T, -1)``, the point
+``o + d``, the normal (0, 0, 1) and zero materials.
+
+The scene-level entry points (``fold_closest_flat``,
+``fold_closest_shortlist``, ``hit_closest_shortlist``) take a scene and rays
+of any shape, pack the tables (``cuda_fold.fused_tables``) and, for the
+shortlist folds, build the shortlists as the per-level chain does: one
+``cuda_level.ray_stats`` launch on the rays with ``w = active``, then
+``cuda_level.phase_a``; scenes of fewer than ``_PER_TILE_MIN_CHUNKS``
+chunks (and sphere-free ones) walk identity lists. The folds break ties on
+the global index, so all three give the same (t, index) for unit
+directions; a direction that left unit length after a grazing bounce can
+meet a sphere outside a chunk's gate, and there only the gated folds skip
+it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from raytracer_tpu_torch.core.types import Scene
+from raytracer_tpu_torch.core.v3 import V3
+from raytracer_tpu_torch.ops import _build, cuda_fold, cuda_level
+from raytracer_tpu_torch.ops.cuda_fold import (
+    FusedTables,
+    _attr_columns,
+    _check_planes,
+    _check_table,
+    _fold,
+    _gather,
+    _kinds,
+    _raise_on,
+    _record_math,
+)
+from raytracer_tpu_torch.ops.trace import MISS_T
+
+__all__ = [
+    "N_RECORD",
+    "fold_flat_reference",
+    "fold_flat",
+    "fold_shortlist_reference",
+    "fold_shortlist",
+    "record_planes",
+    "fold_shortlist_hit_reference",
+    "fold_shortlist_hit",
+    "shortlists",
+    "fold_closest_flat",
+    "fold_closest_shortlist",
+    "hit_closest_shortlist",
+]
+
+N_RECORD = 16  # planes of a hit record: t, index, point, normal, 8 materials
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+
+def fold_flat_reference(tables: FusedTables, o: V3, d: V3):
+    """Plain version of ``fold_flat``: ``(t, index)`` of every ray over
+    every primitive, with no slab clip and no chunk gate (``_fold`` with
+    ``gated=False``, one sphere chunk at a time)."""
+    return _fold(tables.cols, tables.counts, o, d, gated=False)
+
+
+def _as_lists(shortlist, shape, tile, device):
+    """Each lane's tile's ``(chunk order, list length)`` for ``_fold``."""
+    if shortlist is None:
+        return None
+    chunk_list, counts = shortlist
+    tid = cuda_level._tile_index(shape, tile, device)
+    return chunk_list.long()[tid], counts[tid]
+
+
+def fold_shortlist_reference(tables: FusedTables, shortlist, o: V3, d: V3, w: torch.Tensor,
+                             tile=None):
+    """Plain version of ``fold_shortlist``: ``(t, index)`` of every lane of
+    the ``[H, W]`` planes; each lane with ``w > 0`` folds the walls and
+    boxes, then its tile's listed chunks behind its gate (``shortlist`` is
+    ``phase_a``'s ``(chunk_list, counts)``, or ``None`` for identity
+    lists); a dead lane gets ``(MISS_T, -1)``."""
+    bt, bi = _fold(tables.cols, tables.counts, o, d,
+                   _as_lists(shortlist, w.shape, tile, w.device))
+    alive = w > 0.0
+    return torch.where(alive, bt, MISS_T), torch.where(alive, bi, -1)
+
+
+def record_planes(cols, counts: dict, o: V3, d: V3, bt: torch.Tensor, bi: torch.Tensor):
+    """The 16 planes of the hit record at the selection ``(bt, bi)``: the
+    winner's t (``_record_math``'s, the fold's where the recompute does not
+    apply), its index, hit point xyz, normal xyz and the 8 material planes.
+    ``cols`` are the 14 per-primitive attribute columns (``_attr_columns``
+    order, or ``attribute_tables``' columns, whose autograd reaches the
+    scene's leaves). A miss gets ``(MISS_T, -1)``, the point ``o + d``, the
+    normal (0, 0, 1) and zero materials."""
+    hit = bt < MISS_T
+    acc = _gather(cols, bi, hit)
+    tt, hp, hn = _record_math(acc, bt, hit, *_kinds(bi, hit, counts), o, d)
+    return (tt, bi, *hp, *hn, *acc[6:])
+
+
+def fold_shortlist_hit_reference(tables: FusedTables, shortlist, o: V3, d: V3,
+                                 w: torch.Tensor, tile=None):
+    """Plain version of ``fold_shortlist_hit``: ``fold_shortlist_reference``,
+    then ``record_planes`` from the fused table's attribute columns."""
+    bt, bi = fold_shortlist_reference(tables, shortlist, o, d, w, tile)
+    return record_planes(_attr_columns(tables.cols, tables.counts), tables.counts, o, d, bt, bi)
+
+
+# ---------------------------------------------------------------------------
+# The kernels
+# ---------------------------------------------------------------------------
+
+
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def fold_flat(tables: FusedTables, o: V3, d: V3):
+    """``(t f32, index i32)`` of every ray over every primitive, the
+    brute-force fold. Inputs: six contiguous float32 planes of one shape (any
+    shape: the kernel walks them as a flat batch) on one device. On CPU
+    tensors this is ``fold_flat_reference``; on CUDA tensors it launches
+    csrc/fold_flat.cu on the current stream, or raises."""
+    dev, shape = d.x.device, d.x.shape
+    _check_planes((*o, *d), shape, dev, "fold_flat")
+    if dev.type == "cpu":
+        return fold_flat_reference(tables, o, d)
+    _check_table(tables, 0, dev, "fold_flat")
+    t = torch.empty(shape, dtype=torch.float32, device=dev)
+    i = torch.empty(shape, dtype=torch.int32, device=dev)
+    if t.numel():
+        lib = _build.load("fold_flat", _SIGNATURES["fold_flat"])
+        err = lib.fold_flat_launch(
+            *cuda_level._table_args(tables), *cuda_level._ptrs((*o, *d, t, i)), t.numel(),
+            _stream(dev),
+        )
+        _raise_on(err, lib, "fold_flat")
+        fold_flat.launches += 1
+    return t, i
+
+
+fold_flat.launches = 0
+
+
+def _check_shortlist_call(tables, shortlist, o, d, w, tile, name):
+    dev, shape = w.device, w.shape
+    _check_planes((*o, *d, w), shape, dev, name)
+    cuda_level._check_grid(shape, name)
+    if shortlist is not None:
+        (_, th, tw), n_c = cuda_level.tile_grid(shape, tile), tables.counts["n_c"]
+        _check_planes((shortlist[0],), (th * tw, n_c), dev, name, torch.int32)
+        _check_planes((shortlist[1],), (th * tw,), dev, name, torch.int32)
+    if dev.type != "cpu":
+        _check_table(tables, 0, dev, name)
+
+
+def _fold_shortlist_cuda(tables, shortlist, o, d, w, tile, record: bool):
+    shape, dev = w.shape, w.device
+    (tr, tc), _, _ = cuda_level.tile_grid(shape, tile)
+    t = torch.empty(shape, dtype=torch.float32, device=dev)
+    i = torch.empty(shape, dtype=torch.int32, device=dev)
+    rec = (torch.empty((N_RECORD - 2, *shape), dtype=torch.float32, device=dev).unbind(0)
+           if record else (None,) * (N_RECORD - 2))
+    if w.numel():
+        lib = _build.load("fold_shortlist", _SIGNATURES["fold_shortlist"])
+        err = lib.fold_shortlist_launch(
+            *cuda_level._table_args(tables),
+            *cuda_level._ptrs(shortlist if shortlist is not None else (None, None)),
+            *cuda_level._ptrs((*o, *d, w, t, i, *rec)), shape[0], shape[1], tr, tc,
+            _stream(dev),
+        )
+        _raise_on(err, lib, "fold_shortlist")
+        (fold_shortlist_hit if record else fold_shortlist).launches += 1
+    return (t, i, *rec) if record else (t, i)
+
+
+def fold_shortlist(tables: FusedTables, shortlist, o: V3, d: V3, w: torch.Tensor, tile=None):
+    """``(t f32, index i32)`` of every lane of the ``[H, W]`` planes over
+    its tile's shortlist (``phase_a``'s ``(chunk_list, counts)`` for
+    ``tile``, or ``None`` for identity lists); lanes with ``w == 0`` are
+    dead and get ``(MISS_T, -1)``. On CPU tensors this is
+    ``fold_shortlist_reference``; on CUDA tensors it launches
+    csrc/fold_shortlist.cu on the current stream, or raises."""
+    _check_shortlist_call(tables, shortlist, o, d, w, tile, "fold_shortlist")
+    if w.device.type == "cpu":
+        return fold_shortlist_reference(tables, shortlist, o, d, w, tile)
+    return _fold_shortlist_cuda(tables, shortlist, o, d, w, tile, record=False)
+
+
+fold_shortlist.launches = 0
+
+
+def fold_shortlist_hit(tables: FusedTables, shortlist, o: V3, d: V3, w: torch.Tensor,
+                       tile=None):
+    """The hit record of every lane of the ``[H, W]`` planes: the 16 planes
+    of ``record_planes`` at ``fold_shortlist``'s selection. On CPU tensors
+    this is ``fold_shortlist_hit_reference``; on CUDA tensors it launches
+    csrc/fold_shortlist.cu with its record on the current stream, or
+    raises."""
+    _check_shortlist_call(tables, shortlist, o, d, w, tile, "fold_shortlist_hit")
+    if w.device.type == "cpu":
+        return fold_shortlist_hit_reference(tables, shortlist, o, d, w, tile)
+    return _fold_shortlist_cuda(tables, shortlist, o, d, w, tile, record=True)
+
+
+fold_shortlist_hit.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Scene-level entry points
+# ---------------------------------------------------------------------------
+
+
+def _frame(o: V3, d: V3, active):
+    """The rays and the alive plane as contiguous ``[H, W]`` planes (a 1-D
+    batch becomes one row, leading axes fold into the rows), and the
+    broadcast shape to give the results back in."""
+    shape = torch.broadcast_shapes(*(c.shape for c in (*o, *d)))
+    if active is not None:
+        shape = torch.broadcast_shapes(shape, active.shape)
+    n = 1
+    for s in shape:
+        n *= s
+    w_ = shape[-1] if len(shape) >= 1 and shape[-1] else 1
+    hw = (n // w_, w_) if n else (0, w_)
+
+    def plane(c):
+        return torch.broadcast_to(c, shape).reshape(hw).contiguous()
+
+    dev = d.x.device
+    w = (torch.ones(hw, dtype=torch.float32, device=dev) if active is None
+         else plane(active.to(torch.float32)))
+    return V3(*(plane(c) for c in o)), V3(*(plane(c) for c in d)), w, shape
+
+
+def shortlists(tables: FusedTables, o: V3, d: V3, w: torch.Tensor, tile=None):
+    """The per-tile chunk shortlists of these ``[H, W]`` rays for
+    ``fold_shortlist(_hit)``: ``phase_a`` of one ``ray_stats`` launch on the
+    rays alive under ``w``, or ``None`` (identity lists) for scenes below
+    ``_PER_TILE_MIN_CHUNKS`` chunks."""
+    if not cuda_level.uses_shortlists(tables) or not w.numel():
+        return None
+    return cuda_level.phase_a(cuda_level.ray_stats(tables, o, d, w, tile), tables)
+
+
+def fold_closest_flat(scene: Scene, o: V3, d: V3):
+    """``(t, index)`` of every ray over every primitive of ``scene``
+    (``fold_flat``), in the rays' broadcast shape. The fold of
+    ``fold="pallas_flat"``."""
+    o, d, _, shape = _frame(o, d, None)
+    t, i = fold_flat(cuda_fold.fused_tables(scene), o, d)
+    return t.reshape(shape), i.reshape(shape)
+
+
+def fold_closest_shortlist(scene: Scene, o: V3, d: V3, *, active=None):
+    """``(t, index)`` of every ray through the shortlist fold
+    (``fold_shortlist``), in the rays' broadcast shape. ``active``
+    (optional bool, broadcastable to the rays): lanes whose result is
+    unused; they leave the shortlists' stats and get ``(MISS_T, -1)``. The
+    fold of ``fold="pallas"`` and ``"auto"``; tagged ``_emits_hit_record``,
+    since ``hit_closest_shortlist`` gives its full record in one launch."""
+    o, d, w, shape = _frame(o, d, active)
+    tables = cuda_fold.fused_tables(scene)
+    t, i = fold_shortlist(tables, shortlists(tables, o, d, w), o, d, w)
+    return t.reshape(shape), i.reshape(shape)
+
+
+fold_closest_shortlist._emits_hit_record = True
+
+
+def hit_closest_shortlist(scene: Scene, o: V3, d: V3, *, active=None):
+    """The 16 planes of every ray's hit record (``fold_shortlist_hit``), in
+    the rays' broadcast shape; ``active`` as ``fold_closest_shortlist``
+    takes it. Selection only: ``ops/trace.py:_ShortlistHit`` gives it a
+    backward."""
+    o, d, w, shape = _frame(o, d, active)
+    tables = cuda_fold.fused_tables(scene)
+    out = fold_shortlist_hit(tables, shortlists(tables, o, d, w), o, d, w)
+    return tuple(p.reshape(shape) for p in out)
+
+
+# C signatures of the exported functions of csrc/fold_flat.cu and
+# csrc/fold_shortlist.cu.
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "fold_flat": {
+        "fold_flat_launch": (
+            _I, cuda_level._TABLE_ARGTYPES + [_P] * 8 + [ctypes.c_longlong, _P]
+        ),
+        "fold_flat_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "fold_shortlist": {
+        "fold_shortlist_launch": (
+            _I, cuda_level._TABLE_ARGTYPES + [_P] * 25 + [_I] * 4 + [_P]
+        ),
+        "fold_shortlist_error_string": (ctypes.c_char_p, [_I]),
+    },
+}

@@ -56,25 +56,27 @@ def benchmark_render(
     *,
     depth: int = 3,
     iters: int = 10,
+    fold: str = "auto",
     tonemap: bool = True,
 ) -> dict:
     """Forward-render throughput on the card: the median over ``iters``
-    frames of the CUDA-event time from just before the ``render`` call to
-    the end of its last device op, and primary rays/s at that frame time.
-    Nothing is queued ahead of a frame, so host work that holds the device
-    back counts in the frame."""
+    frames of the CUDA-event time from just before the ``render`` call (with
+    the closest-hit ``fold``, as ``render`` takes it) to the end of its last
+    device op, and primary rays/s at that frame time. Nothing is queued
+    ahead of a frame, so host work that holds the device back counts in the
+    frame."""
     from raytracer_tpu_torch.render.integrator import render
 
     _need_cuda()
     scene, camera = scene.to("cuda"), camera.to("cuda")
-    render(scene, camera, width, height, depth=depth, tonemap=tonemap)
+    render(scene, camera, width, height, depth=depth, tonemap=tonemap, fold=fold)
     times = []
     for _ in range(iters):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
         start.record()
-        render(scene, camera, width, height, depth=depth, tonemap=tonemap)
+        render(scene, camera, width, height, depth=depth, tonemap=tonemap, fold=fold)
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
@@ -85,6 +87,7 @@ def benchmark_render(
         "primary_rays_per_s": width * height / (frame_ms * 1e-3),
         "pixels": width * height,
         "depth": depth,
+        "fold": fold,
         "device": torch.cuda.get_device_name(0),
     }
 
