@@ -15,11 +15,17 @@ render path (``render`` of sprint3 at 1920x1080, depth 3) and its training
 path (10 ``make_fit_step`` steps); the large-scene render path (``render``
 of grid-1024 at 1920x1080, depth 3, and at 3840x2160, depth 4) and its
 training path (5 steps at 1920x1080, depth 3); the soft kernels
-(soft_level, soft_level_bwd) against their plain versions on seven
-workloads, level by level, the residual planes and the backward included;
-the soft render path (``render_soft`` of BASELINE c4, grid-64 at 1920x1080,
-depth 1) and its training path (20 ``make_fit_step(soft=True)`` steps from
-moved centres, the loss and the centre error falling); the closest-hit
+(soft_level, soft_level_bwd) against their plain versions on nine
+workloads (up to 8192 spheres), level by level, the residual planes and the
+backward included; the soft launch plan against the kernels' own shared
+memory; the soft diagnosis (``ptxas -v`` of every instantiation of both
+soft kernels, their blocks per SM, and per level of c4, grid-1024 and
+grid-2048 at 1920x1080 their times and bounds, the chunks a lane, a warp and
+a block reach in launch order, the chunks the warp cull passes and the
+share of dead lanes); the soft render path (``render_soft`` of BASELINE
+c4, grid-64 at 1920x1080, depth 1) and its training path (20
+``make_fit_step(soft=True)`` steps from moved centres, the loss and the
+centre error falling); the closest-hit
 kernels (fold_flat, fold_shortlist, fold_shortlist_hit) against their plain
 versions on seven workloads (primary and level-1 bounce rays, an all-dead
 mask) and against each other, their times and bounds, and the sweep of
@@ -30,21 +36,35 @@ of BASELINE c1 (320x240), of grid-1024 at 1920x1080 and of c5 (3840x2160,
 the per-level loop around ``closest_hit_soa`` on grid-1024 1920x1080 d3 with
 its gradient; each path with the kernel launch counts set to 0 just before
 it and read just after; the frame, fit step (soft: c4, grid-1024,
-grid-2048) and forward/backward times and breakdowns; a profile of one
-frame; the guards; a ``kernels`` JSON line. The last line is ``{"ok": true, "device":
-{...}}``. Any failed check ends the run with a non-zero exit code and no
-result line. Without CUDA, or without the package beside it, it exits
-non-zero at once.
+grid-2048, grid-4096) and forward/backward times and breakdowns; a profile
+of one frame; the guards; a ``kernels`` JSON line. The last line is
+``{"ok": true, "device": {...}}``. Any failed check ends the run with a
+non-zero exit code and no result line. Without CUDA, or without the package
+beside it, it exits non-zero at once.
+
+    python3 chip_smoke.py --soft-only [--root DIR]
+    python3 chip_smoke.py --soft-compare PARENT_DIR [--out FILE]
+
+``--soft-only`` runs the soft diagnosis and the soft fit steps of 64 to
+4096 spheres on the package at DIR (default: beside this script), then
+prints them as one JSON line. ``--soft-compare`` runs it on the package
+unpacked at PARENT_DIR and on this one in turns (parent, change, change,
+parent), each in its own process on the same card, and with ``--out``
+writes the runs to FILE as JSON.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -86,7 +106,9 @@ TILES = ((8, 32), (16, 16), (4, 64), (2, 128))
 # Then walls and a sun (sprint3), boxes (the mixed scene), the single-chunk
 # sphere gate (grid-4), a ragged frame (333x111), and the two large soft fits'
 # scenes (bench.py: grid-1024 and grid-2048) at a quarter of 1080p each way:
-# the plain versions run every chunk for every lane and are slow there.
+# the plain versions run every chunk for every lane and are slow there. Then
+# grid-4096 (a 16-tile ring) and grid-8192 (past the JAX kernel's 4096
+# spheres) at an eighth of 1080p each way, for the same reason.
 SOFT_CASES = (
     ("c4_grid64_1920x1080_d1", ("grid_sphere_scene", (64,)), 1920, 1080),
     ("sprint3_1920x1080_d1", ("sprint3_scene", ()), 1920, 1080),
@@ -95,6 +117,8 @@ SOFT_CASES = (
     ("grid64_333x111_d1", ("grid_sphere_scene", (64,)), 333, 111),
     ("grid1024_480x270_d1", ("grid_sphere_scene", (1024,)), 480, 270),
     ("grid2048_480x270_d1", ("grid_sphere_scene", (2048,)), 480, 270),
+    ("grid4096_240x135_d1", ("grid_sphere_scene", (4096,)), 240, 135),
+    ("grid8192_240x135_d1", ("grid_sphere_scene", (8192,)), 240, 135),
 )
 SOFT_TAU, SOFT_TAU_Z = 0.01, 0.05
 
@@ -1330,7 +1354,13 @@ def check_soft(case, device) -> dict:
     included, then ``soft_level_bwd`` against ``soft_level_bwd_reference``
     level by level from a seeded image cotangent, each given the plain
     version's cotangents of its outputs; each kernel and plain version
-    timed on its level's inputs (CUDA events)."""
+    timed on its level's inputs (CUDA events). Every level is also launched
+    in ``soft_lane_order`` (the order the fits' bounce levels of large
+    scenes run in: each lane reads and writes the ray of the order plane),
+    forward and backward: the forward must equal the plain version on the
+    natural order bit for bit, the backward (from the same residual planes)
+    must be within the tolerances, its table cotangent against the plain
+    version's for that level alone."""
     from raytracer_tpu_torch.core.v3 import V3
     from raytracer_tpu_torch.ops import cuda_soft
 
@@ -1345,7 +1375,8 @@ def check_soft(case, device) -> dict:
     acc = V3(*(torch.zeros_like(w) for _ in range(3)))
     r = dict(name=name, n_s=counts["n_s"], fwd_err=[], fwd_rel=[], fwd_identical=[],
              ms=[], ms_res=[], plain_ms=[], bound_ms=[], bound_by=[], reached=[],
-             bwd_rel=[], bwd_ms=[], bwd_plain_ms=[], bwd_bound_ms=[], bwd_bound_by=[])
+             bwd_rel=[], bwd_ms=[], bwd_plain_ms=[], bwd_bound_ms=[], bwd_bound_by=[],
+             order_identical=[], order_bwd_rel=[], order_table_rel=[])
     levels = []
     with torch.no_grad():
         for k in range(2):
@@ -1361,6 +1392,10 @@ def check_soft(case, device) -> dict:
             r["fwd_rel"].append(rel)
             r["fwd_identical"].append(all(torch.equal(a, b) for a, b in zip(got, want))
                                       and all(torch.equal(a, b) for a, b in zip(lean, got)))
+            order = cuda_soft.soft_lane_order(o, d)
+            got_o = _planes_of(cuda_soft.soft_level(tables, gates, o, d, w, acc, last, True,
+                                                    order=order))
+            r["order_identical"].append(all(torch.equal(a, b) for a, b in zip(got_o, want)))
             r["ms"].append(event_ms(lambda: cuda_soft.soft_level(tables, gates, o, d, w, acc,
                                                                  last, False)))
             r["ms_res"].append(event_ms(lambda: cuda_soft.soft_level(tables, gates, o, d, w, acc,
@@ -1372,7 +1407,7 @@ def check_soft(case, device) -> dict:
             bound, by = soft_bound(soft_level_ops(counts, reached, n, last), 20, n)
             r["bound_ms"].append(bound)
             r["bound_by"].append(by)
-            levels.append((o, d, w, want_out[4], reached))
+            levels.append((o, d, w, want_out[4], reached, order))
             acc, w, o, d = want_out[0], want_out[1], want_out[2], want_out[3]
     gen = torch.Generator(device=device).manual_seed(0)
     ct = V3(*(torch.randn(w.shape, generator=gen, device=device) for _ in range(3)))
@@ -1380,12 +1415,19 @@ def check_soft(case, device) -> dict:
     sums_r = torch.zeros_like(sums_k)
     ct_next = None
     for k in (1, 0):
-        o, d, w, res, reached = levels[k]
+        o, d, w, res, reached, order = levels[k]
         last = k == 1
         got = cuda_soft.soft_level_bwd(tables, gates, o, d, w, res, ct, ct_next, last, sums_k)
+        sums_o = torch.zeros_like(sums_k)
+        got_o = cuda_soft.soft_level_bwd(tables, gates, o, d, w, res, ct, ct_next, last, sums_o,
+                                         order=order)
+        before = sums_r.clone()
         want = cuda_soft.soft_level_bwd_reference(tables, o, d, w, res, ct, ct_next, last, sums_r)
         r["bwd_rel"].append(max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
                                 for a, b in zip(got, want)))
+        r["order_bwd_rel"].append(max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                                      for a, b in zip(got_o, want)))
+        r["order_table_rel"].append(table_rel_err(tables, sums_o, sums_r - before)[0])
         scratch = torch.zeros_like(sums_k)
         r["bwd_ms"].append(event_ms(lambda: cuda_soft.soft_level_bwd(
             tables, gates, o, d, w, res, ct, ct_next, last, scratch), iters=5, warmup=1))
@@ -1397,22 +1439,32 @@ def check_soft(case, device) -> dict:
         r["bwd_bound_ms"].append(bound)
         r["bwd_bound_by"].append(by)
         ct_next = want
-    r["bwd_rel"].reverse()
-    for key in ("bwd_ms", "bwd_plain_ms", "bwd_bound_ms", "bwd_bound_by"):
+    for key in ("bwd_rel", "bwd_ms", "bwd_plain_ms", "bwd_bound_ms", "bwd_bound_by",
+                "order_bwd_rel", "order_table_rel"):
         r[key].reverse()
+    table_rel, table_err, worst = table_rel_err(tables, sums_k, sums_r)
+    r["table_rel"], r["table_err"], r["table_worst"] = table_rel, table_err, worst
+    r["fwd_ok"] = max(r["fwd_rel"]) <= 1e-6
+    r["bwd_ok"] = max(r["bwd_rel"]) <= SOFT_BWD_TOL and table_rel <= SOFT_TABLE_TOL
+    r["order_ok"] = (all(r["order_identical"]) and max(r["order_bwd_rel"]) <= SOFT_BWD_TOL
+                     and max(r["order_table_rel"]) <= SOFT_TABLE_TOL)
+    r["ok"] = r["fwd_ok"] and r["bwd_ok"] and r["order_ok"]
+    return r
+
+
+def table_rel_err(tables, got: torch.Tensor, want: torch.Tensor):
+    """(the largest error of a packed-table cotangent relative to its
+    array's largest entry in ``want``, the largest absolute error, the
+    array of the largest relative one)."""
     table_rel, table_err, worst = 0.0, 0.0, None
     for key, (off, size) in tables.layout.items():
-        a, b = sums_k[off:off + size], sums_r[off:off + size]
+        a, b = got[off:off + size], want[off:off + size]
         err = float((a - b).abs().max())
         table_err = max(table_err, err)
         rel = err / float(b.abs().max()) if float(b.abs().max()) else (float("inf") if err else 0.0)
         if rel > table_rel:
             table_rel, worst = rel, key
-    r["table_rel"], r["table_err"], r["table_worst"] = table_rel, table_err, worst
-    r["fwd_ok"] = max(r["fwd_rel"]) <= 1e-6
-    r["bwd_ok"] = max(r["bwd_rel"]) <= SOFT_BWD_TOL and table_rel <= SOFT_TABLE_TOL
-    r["ok"] = r["fwd_ok"] and r["bwd_ok"]
-    return r
+    return table_rel, table_err, worst
 
 
 def print_soft(r: dict):
@@ -1433,6 +1485,12 @@ def print_soft(r: dict):
         f"plain_ms={[round(v, 1) for v in r['bwd_plain_ms']]} "
         f"bound_ms={[round(v, 4) for v in r['bwd_bound_ms']]} ({r['bwd_bound_by']})",
         flush=True,
+    )
+    print(
+        f"soft lane order {r['name']}: ok={r['order_ok']} "
+        f"soft_level_identical={r['order_identical']} soft_level_bwd_plane_max_rel_err="
+        f"{[float(f'{v:.3g}') for v in r['order_bwd_rel']]} table_max_rel_err="
+        f"{[float(f'{v:.3g}') for v in r['order_table_rel']]}", flush=True,
     )
 
 
@@ -1598,6 +1656,338 @@ def drive_soft_fit(device, steps: int = 20, width: int = 1920, height: int = 108
           and all(bool(torch.isfinite(v).all()) for v in state.params.values()))
     return dict(launches=launches, per_step=per_step, losses=losses, errors=errors,
                 plain_calls=plain.calls, ok=ok)
+
+
+# ---------------------------------------------------------------------------
+# The soft diagnosis: what ptxas made of the soft kernels, how many blocks
+# of each fit on an SM, and per level at 1920x1080 their times and how far
+# lanes, warps and blocks reach into the sphere chunks
+# ---------------------------------------------------------------------------
+
+# The soft scenes timed level by level at 1920x1080, depth 1: c4 and the
+# large soft fits' scenes (bench.py:207-220).
+SOFT_LEVEL_SCENES = (("c4_grid64", 64), ("grid1024", 1024), ("grid2048", 2048))
+# The soft fit steps timed at 1920x1080, depth 1.
+SOFT_FIT_SIZES = (64, 1024, 2048, 4096)
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
+_PTXAS_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads")
+_PTXAS_USED = re.compile(r"Used (\d+) registers")
+_PTXAS_SMEM = re.compile(r"(\d+) bytes smem")
+
+
+def ptxas_start(names=("soft_level", "soft_level_bwd")) -> dict:
+    """One ``nvcc -cubin -Xptxas -v`` per source of the imported package's
+    csrc/, with its build flags, all started together: ``{name: (cubin,
+    process)}``."""
+    from raytracer_tpu_torch.ops import _build
+
+    out = Path(tempfile.mkdtemp(prefix="ptxas_"))
+    flags = [f for f in _build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    procs = {}
+    for name in names:
+        cubin = out / f"{name}.cubin"
+        cmd = [_build._nvcc(), *flags, "-cubin", "-Xptxas", "-v", "-o", str(cubin),
+               str(_build.CSRC / f"{name}.cu")]
+        procs[name] = (cubin, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                               stderr=subprocess.STDOUT, text=True))
+    return procs
+
+
+def kernel_label(mangled: str) -> str:
+    """``name<true,false>`` of a mangled kernel in an anonymous namespace."""
+    m = re.search(r"\d+(\w+?_kernel)I((?:Lb[01]E)+)E", mangled)
+    if not m:
+        return mangled
+    flags = re.findall(r"Lb([01])E", m.group(2))
+    return f"{m.group(1)}<{','.join('true' if b == '1' else 'false' for b in flags)}>"
+
+
+def ptxas_finish(procs: dict) -> list:
+    """Each kernel entry of the started builds: its registers, spill stores
+    and loads, stack frame and static shared memory (``ptxas -v``), with
+    its cubin and mangled name. Raises if a build failed."""
+    rows = []
+    for name, (cubin, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"ptxas report of {name} failed:\n{log}")
+        cur = None
+        for line in log.splitlines():
+            m = _PTXAS_ENTRY.search(line)
+            if m:
+                cur = dict(source=name, mangled=m.group(1), kernel=kernel_label(m.group(1)),
+                           cubin=str(cubin))
+                rows.append(cur)
+            elif cur is not None and (m := _PTXAS_FRAME.search(line)):
+                cur.update(stack=int(m[1]), spill_stores=int(m[2]), spill_loads=int(m[3]))
+            elif cur is not None and (m := _PTXAS_USED.search(line)):
+                s = _PTXAS_SMEM.search(line)
+                cur.update(registers=int(m[1]), static_smem=int(s[1]) if s else 0)
+    return rows
+
+
+def occupancy(row: dict, block: int, smem: int) -> int:
+    """Blocks of ``block`` threads and ``smem`` dynamic shared bytes of the
+    kernel of ``row`` that fit on one SM
+    (cuOccupancyMaxActiveBlocksPerMultiprocessor on its cubin); 0 where the
+    kernel cannot have that much shared memory."""
+    torch.zeros(1, device="cuda")  # the primary context, current on this thread
+    lib = ctypes.CDLL("libcuda.so.1")
+    mod, fn, n = ctypes.c_void_p(), ctypes.c_void_p(), ctypes.c_int(0)
+    if lib.cuModuleLoad(ctypes.byref(mod), row["cubin"].encode()):
+        raise RuntimeError(f"cuModuleLoad {row['cubin']} failed")
+    try:
+        if lib.cuModuleGetFunction(ctypes.byref(fn), mod, row["mangled"].encode()):
+            raise RuntimeError(f"cuModuleGetFunction {row['mangled']} failed")
+        if smem > 48 * 1024 and lib.cuFuncSetAttribute(fn, 8, ctypes.c_int(smem)):
+            return 0  # 8: CU_FUNC_ATTRIBUTE_MAX_DYNAMIC_SHARED_SIZE_BYTES
+        if lib.cuOccupancyMaxActiveBlocksPerMultiprocessor(
+                ctypes.byref(n), fn, ctypes.c_int(block), ctypes.c_size_t(smem)):
+            return 0
+        return n.value
+    finally:
+        lib.cuModuleUnload(mod)
+
+
+def soft_smem(tables) -> dict:
+    """Dynamic shared bytes of each soft kernel for ``tables``: the launch
+    plan's where the package has one, else the whole-table layout's (the
+    kernels before the sphere ring, which ``--soft-compare`` runs as the
+    parent of the ring's change)."""
+    from raytracer_tpu_torch.ops import cuda_soft
+
+    plan = getattr(cuda_soft, "soft_launch_plan", None)
+    if plan is not None:
+        p = plan(tables.counts)
+        return {"soft_level": p["smem"], "soft_level_bwd": p["smem_bwd"]}
+    c = tables.counts
+    n_lt = 6 * (c["n_pt"] + c["n_sun"]) + 2
+    fwd = tables.smem_bytes
+    bwd = fwd + 4 * (tables.packed.numel() - 12 * c["n_s_pad"] + n_lt * cuda_soft._BLOCK)
+    return {"soft_level": fwd, "soft_level_bwd": bwd}
+
+
+def _srecip_t(c: torch.Tensor) -> torch.Tensor:
+    return torch.where(c.abs() > 1e-12, 1.0 / c, torch.where(c >= 0.0, 1e30, -1e30))
+
+
+def group_cull(gates, o, d, tau, group: int = 32) -> torch.Tensor:
+    """[n_groups, n_chunks]: whether the kernels' conservative test
+    (soft_common.cuh's ``bounds_reach``) passes chunk c for the group of
+    ``group`` consecutive lanes (flat planes in launch order; 32: a warp):
+    the box gate's slab test over the box of the group's origins and
+    reciprocal directions (float32 interval arithmetic, so it never rejects
+    a chunk whose exact gate a lane passes). Its passes per warp, printed
+    as ``warp_cull_pass``, say how much of a warp's gating the cull saves
+    (PERF.md)."""
+    n = o[0].numel()
+    pad = -n % group
+
+    def grouped(x):
+        x = x.reshape(-1)
+        if pad:
+            x = torch.cat([x, x[-1:].expand(pad)])
+        return x.view(-1, group)
+
+    tau_eff = max(float(tau), 1e-6)
+    tn_lo = tf_hi = None
+    for k, x in enumerate("xyz"):
+        og, ig = grouped(o[k]), grouped(_srecip_t(d[k]))
+        olo, ohi = og.amin(1)[:, None], og.amax(1)[:, None]
+        ilo, ihi = ig.amin(1)[:, None], ig.amax(1)[:, None]
+        lo_k = hi_k = None
+        for row in (6 + k, 9 + k):
+            g = gates[row][None, :]
+            a, b = g - ohi, g - olo
+            corners = torch.stack([a * ilo, a * ihi, b * ilo, b * ihi])
+            c_lo, c_hi = corners.amin(0), corners.amax(0)
+            lo_k = c_lo if lo_k is None else torch.minimum(lo_k, c_lo)
+            hi_k = c_hi if hi_k is None else torch.maximum(hi_k, c_hi)
+        tn_lo = lo_k if tn_lo is None else torch.maximum(tn_lo, lo_k)
+        tf_hi = hi_k if tf_hi is None else torch.minimum(tf_hi, hi_k)
+    return ~(tn_lo > tf_hi) & ~(tf_hi <= -128.0 * tau_eff) & (gates[4][None, :] >= 0.0)
+
+
+def reach_stats(tables, gates, o, d, order=None) -> dict:
+    """Chunk reach of one level's lanes in launch order (``order``: flat
+    lane indices, natural order if None): per lane (the exact gate,
+    ``chunk_reachable``), the union over each warp (32 consecutive lanes)
+    and each block (256), their ratios to the lane reach, and with the box
+    gate the chunks a warp's conservative cull passes (``group_cull``)."""
+    from raytracer_tpu_torch.core.v3 import V3
+    from raytracer_tpu_torch.ops import cuda_soft
+
+    c = tables.counts
+    o = [x.reshape(-1) for x in o]
+    d = [x.reshape(-1) for x in d]
+    if order is not None:
+        o, d = [x[order] for x in o], [x[order] for x in d]
+    n = o[0].numel()
+    pad = -n % 256
+    lane = warp = block = 0
+    for k in range(c["n_chunks"]):
+        m = cuda_soft.chunk_reachable(gates, c["gate"], k, V3(*o), V3(*d), SOFT_TAU)
+        lane += int(m.sum())
+        m = torch.cat([m, m.new_zeros(pad)]) if pad else m
+        warp += int(m.view(-1, 32).any(1).sum())
+        block += int(m.view(-1, 256).any(1).sum())
+    n_w, n_b = (n + pad) // 32, (n + pad) // 256
+    r = dict(lane=lane / n, warp=warp / n_w, block=block / n_b)
+    r["warp_ratio"] = r["warp"] / max(r["lane"], 1e-30)
+    r["block_ratio"] = r["block"] / max(r["lane"], 1e-30)
+    if c["gate"] == 0:
+        r["warp_cull"] = float(group_cull(gates, o, d, SOFT_TAU).sum()) / n_w
+    return r
+
+
+def soft_level_diagnosis(n_spheres: int, device, width: int = 1920, height: int = 1080,
+                         reach: bool = True) -> dict:
+    """Both soft kernels level by level on grid-``n_spheres`` at
+    ``width`` x ``height``, depth 1, as the fit runs them (the forward with
+    its residuals, each level in ``soft_levels``' lane order, the backward
+    from a seeded image cotangent): each launch's time (CUDA events), and
+    with ``reach`` each level's reach (``reach_stats``, in launch order)
+    and share of lanes with throughput 0."""
+    from raytracer_tpu_torch.core.v3 import V3
+    from raytracer_tpu_torch.ops import cuda_soft
+
+    scene = make_scene(("grid_sphere_scene", (n_spheres,)), device)
+    o, d, w = frame_rays(width, height, device)
+    with torch.no_grad():
+        tables = cuda_soft.soft_tables(scene, SOFT_TAU, SOFT_TAU_Z)
+    gates = cuda_soft.soft_gate_tables(scene, SOFT_TAU)
+    # The package's lane-order rule (none before the ring: --soft-compare's parent).
+    ordered = getattr(cuda_soft, "_orders_level", None)
+    acc = V3(*(torch.zeros_like(w) for _ in range(3)))
+    r = dict(n_s=n_spheres, fwd_ms=[], bwd_ms=[], reach=[], dead=[], bound_ms=[],
+             bwd_bound_ms=[])
+    levels = []
+    with torch.no_grad():
+        for k in range(2):
+            last = k == 1
+            kw = {}
+            if ordered is not None and ordered(tables.counts, k):
+                kw["order"] = cuda_soft.soft_lane_order(o, d)
+            r["fwd_ms"].append(event_ms(lambda: cuda_soft.soft_level(
+                tables, gates, o, d, w, acc, last, True, **kw), iters=5, warmup=1))
+            out = cuda_soft.soft_level(tables, gates, o, d, w, acc, last, True, **kw)
+            if reach:
+                r["reach"].append(reach_stats(tables, gates, o, d, kw.get("order")))
+                reached, n = r["reach"][-1]["lane"] * w.numel(), w.numel()
+                n_carry = 5 if last else 15
+                r["bound_ms"].append(soft_bound(soft_level_ops(tables.counts, reached, n, last),
+                                                20, n)[0])
+                r["bwd_bound_ms"].append(soft_bound(
+                    soft_level_bwd_ops(tables.counts, reached, n, last),
+                    7 + 1 + n_carry + 3 + (0 if last else 7) + 7, n)[0])
+            r["dead"].append(float((w == 0).float().mean()))
+            levels.append((o, d, w, out[4], kw))
+            acc, w, o, d = out[0], out[1], out[2], out[3]
+    gen = torch.Generator(device=device).manual_seed(0)
+    ct = V3(*(torch.randn(w.shape, generator=gen, device=device) for _ in range(3)))
+    sums = torch.zeros(tables.packed.shape, dtype=torch.float64, device=device)
+    ct_next = None
+    for k in (1, 0):
+        o, d, w, res, kw = levels[k]
+        r["bwd_ms"].append(event_ms(lambda: cuda_soft.soft_level_bwd(
+            tables, gates, o, d, w, res, ct, ct_next, k == 1, sums, **kw), iters=5, warmup=1))
+        ct_next = cuda_soft.soft_level_bwd(tables, gates, o, d, w, res, ct, ct_next, k == 1,
+                                           sums, **kw)
+    r["bwd_ms"].reverse()
+    r["smem"] = soft_smem(tables)
+    return r
+
+
+def soft_diagnosis(device, procs=None) -> dict:
+    """The ``soft diagnosis`` phase: ``ptxas -v`` of every instantiation
+    of both soft kernels (``procs``: the builds ``ptxas_start`` started, or
+    started here), their blocks per SM at each scene's shared memory, then
+    ``soft_level_diagnosis`` of each of SOFT_LEVEL_SCENES."""
+    from raytracer_tpu_torch.ops import cuda_soft
+
+    procs = procs or ptxas_start()
+    scenes_out = {name: soft_level_diagnosis(n, device) for name, n in SOFT_LEVEL_SCENES}
+    ptx = ptxas_finish(procs)
+    for row in ptx:
+        row["blocks_per_sm"] = {name: occupancy(row, cuda_soft._BLOCK, s["smem"][row["source"]])
+                                for name, s in scenes_out.items()}
+    return dict(ptxas=ptx, scenes=scenes_out)
+
+
+def soft_fit_steps(device, sizes=SOFT_FIT_SIZES, iters: int = 3) -> dict:
+    """The soft fit step of grid-n at 1920x1080, depth 1, for each n of
+    ``sizes`` (``benchmark_fit_step``, median of ``iters``), with the launch
+    counts of its ``iters`` + 1 steps. Where the package predates the sphere
+    ring (``--soft-compare``'s parent), a step that raises (4096 spheres
+    exceeded its shared memory) is recorded as its error; else it fails the
+    run."""
+    from raytracer_tpu_torch.models import scenes
+    from raytracer_tpu_torch.ops import cuda_soft
+    from raytracer_tpu_torch.utils.profiler import benchmark_fit_step
+
+    before_ring = not hasattr(cuda_soft, "soft_launch_plan")
+
+    camera = scenes.reference_demo_camera(device=device)
+    out = {}
+    for n in sizes:
+        reset_launches()
+        try:
+            fit = benchmark_fit_step(scenes.grid_sphere_scene(n, device=device), camera,
+                                     1920, 1080, depth=1, soft=True, iters=iters)
+        except ValueError as exc:
+            if not before_ring:
+                raise
+            out[n] = dict(error=f"{type(exc).__name__}: {exc}")
+            continue
+        torch.cuda.synchronize()
+        out[n] = dict(step_ms=fit["step_ms"], step_ms_all=fit["step_ms_all"],
+                      launches=read_launches())
+    return out
+
+
+def soft_plan_matches(device) -> bool:
+    """Whether ``cuda_soft.soft_launch_plan``'s shared bytes equal the ones
+    the kernels compute (their exported ``*_smem_bytes``) for the table of
+    every SOFT_CASES scene."""
+    from raytracer_tpu_torch.ops import _build, cuda_soft
+
+    lib = _build.load("soft_level", cuda_soft._SIGNATURES["soft_level"])
+    libb = _build.load("soft_level_bwd", cuda_soft._SIGNATURES["soft_level_bwd"])
+    ok = True
+    for _, spec, _, _ in SOFT_CASES:
+        with torch.no_grad():
+            c = cuda_soft.soft_tables(make_scene(spec, device), SOFT_TAU, SOFT_TAU_Z).counts
+        n_small = sum(c[s] for k, s in cuda_soft._PACK if not k.startswith("s_"))
+        n_lt = 6 * (c["n_pt"] + c["n_sun"]) + 2
+        p = cuda_soft.soft_launch_plan(c)
+        ok &= (lib.soft_level_smem_bytes(n_small) == p["smem"]
+               and libb.soft_level_bwd_smem_bytes(n_small, n_lt) == p["smem_bwd"])
+    return ok
+
+
+def print_soft_diagnosis(diag: dict):
+    nan = float("nan")
+    for row in diag["ptxas"]:
+        print(f"soft diagnosis ptxas {row['kernel']}: registers={row['registers']} "
+              f"spill_stores={row['spill_stores']} spill_loads={row['spill_loads']} "
+              f"stack={row['stack']} static_smem={row['static_smem']} "
+              f"blocks_per_sm={row['blocks_per_sm']}", flush=True)
+    for name, s in diag["scenes"].items():
+        for k in range(2):
+            re_ = s["reach"][k] if s["reach"] else {}
+            bounds = (f"bound_ms={s['bound_ms'][k]:.4f} bwd_bound_ms={s['bwd_bound_ms'][k]:.4f} "
+                      if s["bound_ms"] else "")
+            line = (f"soft diagnosis {name} 1920x1080 level {k}: "
+                    f"soft_level_ms={s['fwd_ms'][k]:.4f} soft_level_bwd_ms={s['bwd_ms'][k]:.4f} "
+                    + bounds +
+                    f"lane_reach={re_.get('lane', nan):.3f} warp_union={re_.get('warp', nan):.3f} "
+                    f"ratio={re_.get('warp_ratio', nan):.3f} "
+                    f"block_union={re_.get('block', nan):.3f} "
+                    f"block_ratio={re_.get('block_ratio', nan):.3f} "
+                    f"warp_cull_pass={re_.get('warp_cull', nan):.3f} "
+                    f"dead_share={s['dead'][k]:.4f} smem={s['smem']}")
+            print(line, flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2091,6 +2481,7 @@ def main() -> int:
     kernels_built = ["trace_whole", "trace_whole_bwd", "ray_stats", "trace_level",
                      "trace_level_bwd", "soft_level", "soft_level_bwd", "fold_flat",
                      "fold_shortlist"]
+    soft_ptxas = ptxas_start()  # the soft diagnosis's ptxas reports, built beside the kernels
     _build.build(kernels_built)
     print(f"build: {', '.join(kernels_built)} {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -2274,6 +2665,12 @@ def main() -> int:
         ok &= r["ok"]
         print_soft(r)
     smain = soft_results[0]
+    plan_ok = soft_plan_matches("cuda")
+    ok &= plan_ok
+    print(f"soft launch plan: shared bytes of cuda_soft.soft_launch_plan equal the kernels' "
+          f"own on every soft workload: {plan_ok}", flush=True)
+    sdiag = soft_diagnosis("cuda", procs=soft_ptxas)
+    print_soft_diagnosis(sdiag)
     srender = drive_soft_render("cuda")
     ok &= srender["ok"]
     print(
@@ -2303,13 +2700,15 @@ def main() -> int:
                   f"top={p['top']}", flush=True)
     except Exception as exc:  # the profiler's CUDA trace is untried on this machine
         print(f"profile soft: not available ({type(exc).__name__}: {exc})", flush=True)
-    for n in (1024, 2048):  # bench.py's two large soft fits
+    fits_n = {}
+    for n in (1024, 2048, 4096):  # bench.py's two large soft fits, and 4096 spheres
         reset_launches()
         fit_n = benchmark_fit_step(scenes.grid_sphere_scene(n, device="cuda"), camera, 1920, 1080,
                                    depth=1, soft=True, iters=3)
         torch.cuda.synchronize()
         n_launches = read_launches()  # 4 steps: one untimed, 3 timed
         ok &= n_launches == launches_of(soft_level=8, soft_level_bwd=8)
+        fits_n[n] = dict(step_ms=fit_n["step_ms"], launches=n_launches["soft_level"])
         print(f"soft fit step grid{n} 1920x1080 d1: launches={n_launches} "
               f"step_ms={fit_n['step_ms']:.4f} (all {[round(v, 4) for v in fit_n['step_ms_all']]})",
               flush=True)
@@ -2471,11 +2870,14 @@ def main() -> int:
                              "soft_fit_c4_20_steps": sfit["launches"]["soft_level"]},
         "max_abs_err": max(max(r["fwd_err"]) for r in soft_results),
         "ms": frame_sum(smain["ms"]), "ms_per_level": smain["ms"],
+        "ms_per_level_1080p": {k: v["fwd_ms"] for k, v in sdiag["scenes"].items()},
+        "bound_ms_per_level_1080p": {k: v["bound_ms"] for k, v in sdiag["scenes"].items()},
+        "launches_large_soft_fits": {f"grid{n}_4_steps": f["launches"] for n, f in fits_n.items()},
         "ms_emit_res": frame_sum(smain["ms_res"]),
         "plain_ms": frame_sum(smain["plain_ms"]),
         "bound_ms": frame_sum(smain["bound_ms"]), "bound_by": smain["bound_by"][0],
         "library_ms": None,
-        "check": all(r["fwd_ok"] for r in soft_results),
+        "check": all(r["fwd_ok"] and all(r["order_identical"]) for r in soft_results),
     }, {
         "name": "soft_level_bwd", "route": "cuda",
         "source": "raytracer_tpu_torch/csrc/soft_level_bwd.cu",
@@ -2487,10 +2889,13 @@ def main() -> int:
         "max_rel_err_all_cases": max(max(max(r["bwd_rel"]), r["table_rel"])
                                      for r in soft_results),
         "ms": frame_sum(smain["bwd_ms"]), "ms_per_level": smain["bwd_ms"],
+        "ms_per_level_1080p": {k: v["bwd_ms"] for k, v in sdiag["scenes"].items()},
+        "bound_ms_per_level_1080p": {k: v["bwd_bound_ms"] for k, v in sdiag["scenes"].items()},
+        "launches_large_soft_fits": {f"grid{n}_4_steps": f["launches"] for n, f in fits_n.items()},
         "plain_ms": frame_sum(smain["bwd_plain_ms"]),
         "bound_ms": frame_sum(smain["bwd_bound_ms"]), "bound_by": smain["bwd_bound_by"][0],
         "library_ms": None,
-        "check": all(r["bwd_ok"] for r in soft_results),
+        "check": all(r["bwd_ok"] and r["order_ok"] for r in soft_results),
     }]
     d1080, c1_depth = depth_paths["grid1024_1920x1080"], depth_paths["c1_demo_320x240"]
     t_flat = hit_times["sprint3_1920x1080"]["fold_flat"]
@@ -2533,5 +2938,80 @@ def main() -> int:
     return 0
 
 
+def soft_only() -> int:
+    """``--soft-only``: the card's line, the soft kernels' build, the soft
+    diagnosis and the soft fit steps of SOFT_FIT_SIZES, then one JSON line
+    of them all. Run by ``--soft-compare`` on each tree it compares."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 1
+    import raytracer_tpu_torch
+    from raytracer_tpu_torch.ops import _build
+
+    root = str(Path(raytracer_tpu_torch.__file__).resolve().parents[1])
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True,
+    ).stdout.strip().splitlines()[0]
+    print(f"{smi} (package at {root})", flush=True)
+    t0 = time.perf_counter()
+    _build.build(["soft_level", "soft_level_bwd"])
+    print(f"build: soft_level, soft_level_bwd {time.perf_counter() - t0:.1f} s", flush=True)
+    diag = soft_diagnosis("cuda")
+    print_soft_diagnosis(diag)
+    fits = soft_fit_steps("cuda")
+    for n, f in fits.items():
+        print(f"soft fit step grid{n} 1920x1080 d1: {f}", flush=True)
+    for row in diag["ptxas"]:
+        del row["cubin"]
+    print(json.dumps({"soft_compare": {"root": root, "card": smi, "diagnosis": diag,
+                                       "fits": fits}}), flush=True)
+    return 0
+
+
+def soft_compare(parent: str, out: str | None = None) -> int:
+    """``--soft-compare PARENT``: ``--soft-only`` on the package unpacked at
+    PARENT and on this checkout's, in turns (parent, change, change,
+    parent) on the same card, each in its own process; prints each run and
+    a summary of the per-level kernel times and the fit steps, and writes
+    the runs to ``out`` as JSON if given."""
+    here = str(Path(__file__).resolve().parent)
+    runs = []
+    for root in (parent, here, here, parent):
+        cmd = [sys.executable, str(Path(__file__).resolve()), "--soft-only", "--root", root]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        lines = proc.stdout.splitlines()
+        for line in lines:
+            if not line.startswith('{"soft_compare"'):
+                print(f"[{'parent' if root == parent else 'change'}] {line}", flush=True)
+        if proc.returncode:
+            print(proc.stderr[-6000:], file=sys.stderr)
+            return proc.returncode
+        runs.append(json.loads(next(x for x in lines if x.startswith('{"soft_compare"'))))
+    if out:
+        Path(out).write_text(json.dumps(runs))
+    names = ("parent", "change", "change", "parent")
+    for scene in runs[0]["soft_compare"]["diagnosis"]["scenes"]:
+        for key in ("fwd_ms", "bwd_ms"):
+            vals = {i: runs[i]["soft_compare"]["diagnosis"]["scenes"][scene][key]
+                    for i in range(4)}
+            print(f"soft compare {scene} 1920x1080 {key} per level: "
+                  + " ".join(f"{names[i]}={[round(v, 4) for v in vals[i]]}" for i in range(4)),
+                  flush=True)
+    for n in runs[0]["soft_compare"]["fits"]:
+        print(f"soft compare fit step grid{n} 1920x1080 d1 ms: "
+              + " ".join(f"{names[i]}={runs[i]['soft_compare']['fits'][n].get('step_ms', 'raises')}"
+                         for i in range(4)), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
+    argv = sys.argv[1:]
+    if "--root" in argv:
+        sys.path.insert(0, argv[argv.index("--root") + 1])
+    if "--soft-compare" in argv:
+        sys.exit(soft_compare(argv[argv.index("--soft-compare") + 1],
+                              argv[argv.index("--out") + 1] if "--out" in argv else None))
+    if "--soft-only" in argv:
+        sys.exit(soft_only())
     sys.exit(main())

@@ -34,21 +34,26 @@ constexpr float ALPHA_MAX = (float)(1.0 - 1e-7);
 constexpr float T_MARGIN = 128.0f;
 constexpr int GATE_AABB = 0;
 constexpr int N_SPH = 12, N_WALL = 23, N_BOX = 14;
+constexpr int BLOCK = 256;       // threads of a block of both kernels
+constexpr int MASK_WORDS = 8;    // lane-mask words (32 chunks each) the forward keeps for pass 2
+constexpr int N_BND = 16;        // a warp's ray bounds: o lo/hi, iv lo/hi (12), not-finite flag
 
 // Offsets (in floats) of each group of the packed table; mirrors _PACK in
 // raytracer_tpu_torch/ops/cuda_soft.py. Each group is a run of columns, one
-// value per item: spheres (12 columns of n_s_pad), walls (23 of max(n_w,
-// 1)), boxes (14 of max(n_b, 1)), point lights and suns (6 of max(n, 1)
-// each), the 10 sky scalars, tau and tau_z.
+// value per item: spheres (12 columns of n_s_pad, the first n_s real, the
+// rest padding), walls (23 of max(n_w, 1)), boxes (14 of max(n_b, 1)),
+// point lights and suns (6 of max(n, 1) each), the 10 sky scalars, tau and
+// tau_z. Everything past the spheres is the "small table" (n_small floats).
 struct Layout {
-  int n_s_pad, n_chunks, n_w, n_b, n_pt, n_sun, gate;
+  int n_s, n_s_pad, n_chunks, n_w, n_b, n_pt, n_sun, gate;
   int nw1, nb1, np1, nu1;
-  int wall, box, pt, sun, sky, tau, tau_z, n_tab;
+  int wall, box, pt, sun, sky, tau, tau_z, n_tab, n_small;
 };
 
-inline Layout make_layout(int n_s_pad, int n_w, int n_b, int n_pt, int n_sun, int gate) {
+inline Layout make_layout(int n_s, int n_s_pad, int n_w, int n_b, int n_pt, int n_sun,
+                          int gate) {
   Layout L;
-  L.n_s_pad = n_s_pad; L.n_chunks = n_s_pad / CHUNK;
+  L.n_s = n_s; L.n_s_pad = n_s_pad; L.n_chunks = n_s_pad / CHUNK;
   L.n_w = n_w; L.n_b = n_b; L.n_pt = n_pt; L.n_sun = n_sun; L.gate = gate;
   L.nw1 = n_w > 1 ? n_w : 1; L.nb1 = n_b > 1 ? n_b : 1;
   L.np1 = n_pt > 1 ? n_pt : 1; L.nu1 = n_sun > 1 ? n_sun : 1;
@@ -60,36 +65,220 @@ inline Layout make_layout(int n_s_pad, int n_w, int n_b, int n_pt, int n_sun, in
   L.tau = L.sky + 10;
   L.tau_z = L.tau + 1;
   L.n_tab = L.tau_z + 1;
+  L.n_small = L.n_tab - L.wall;
   return L;
 }
 
-// The table and the gates [12, n_chunks] (GATE_KEYS order), wherever they lie.
+// Whether the launch's arguments describe a table these kernels take.
+inline bool layout_ok(const Layout& L, int n_tab) {
+  return L.n_tab == n_tab && L.n_s_pad > 0 && L.n_s_pad % CHUNK == 0 && L.n_s >= 0 &&
+         L.n_s <= L.n_s_pad;
+}
+
+__host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
+
+// Floats of one tile of the sphere ring: 12 columns of 8 tile_c spheres,
+// then the 12 gate rows of its tile_c chunks.
+__host__ __device__ inline int tile_floats(int tile_c) { return N_SPH * CHUNK * tile_c + N_GATE * tile_c; }
+
+// The table as a kernel sees it: the small table resident in shared memory,
+// and one tile of the sphere ring (chunks c0 .. c0 + tile_c - 1, spheres
+// s0 = 8 c0 ...) with its gates. Sphere and gate reads must stay inside
+// the tile.
 struct Tab {
-  const float* t;
+  const float* small;
+  const float* sph;
   const float* g;
+  int s0, c0, ts, tc;
   Layout L;
-  __device__ __forceinline__ float s(int col, int i) const { return t[col * L.n_s_pad + i]; }
-  __device__ __forceinline__ float w(int col, int i) const { return t[L.wall + col * L.nw1 + i]; }
-  __device__ __forceinline__ float b(int col, int i) const { return t[L.box + col * L.nb1 + i]; }
-  __device__ __forceinline__ float pt(int col, int j) const { return t[L.pt + col * L.np1 + j]; }
-  __device__ __forceinline__ float sun(int col, int j) const { return t[L.sun + col * L.nu1 + j]; }
-  __device__ __forceinline__ float sky(int k) const { return t[L.sky + k]; }
-  __device__ __forceinline__ float tau() const { return t[L.tau]; }
-  __device__ __forceinline__ float tau_z() const { return t[L.tau_z]; }
-  __device__ __forceinline__ float gate(int row, int c) const { return g[row * L.n_chunks + c]; }
+  __device__ __forceinline__ float s(int col, int i) const { return sph[col * ts + (i - s0)]; }
+  __device__ __forceinline__ float w(int col, int i) const { return small[col * L.nw1 + i]; }
+  __device__ __forceinline__ float b(int col, int i) const {
+    return small[(L.box - L.wall) + col * L.nb1 + i];
+  }
+  __device__ __forceinline__ float pt(int col, int j) const {
+    return small[(L.pt - L.wall) + col * L.np1 + j];
+  }
+  __device__ __forceinline__ float sun(int col, int j) const {
+    return small[(L.sun - L.wall) + col * L.nu1 + j];
+  }
+  __device__ __forceinline__ float sky(int k) const { return small[(L.sky - L.wall) + k]; }
+  __device__ __forceinline__ float tau() const { return small[L.tau - L.wall]; }
+  __device__ __forceinline__ float tau_z() const { return small[L.tau_z - L.wall]; }
+  __device__ __forceinline__ float gate(int row, int c) const { return g[row * tc + (c - c0)]; }
+  // This view with tile `t` of the ring at `buf`.
+  __device__ __forceinline__ Tab at(int t, const float* buf) const {
+    Tab v = *this;
+    v.c0 = t * tc; v.s0 = v.c0 * CHUNK; v.sph = buf; v.g = buf + N_SPH * ts;
+    return v;
+  }
 };
 
-// Copies the table and the gates into `sm` (n_tab + 12 n_chunks floats).
-// Ends with a __syncthreads.
-__device__ __forceinline__ Tab tab_shared(const Layout& L, const float* g_tab,
-                                          const float* g_gate, float* sm) {
-  const int n_g = N_GATE * L.n_chunks;
-  for (int j = threadIdx.x; j < L.n_tab; j += blockDim.x) sm[j] = g_tab[j];
-  for (int j = threadIdx.x; j < n_g; j += blockDim.x) sm[L.n_tab + j] = g_gate[j];
-  __syncthreads();
+// Copies the small table into `sm` (n_small floats); the caller syncs.
+__device__ __forceinline__ Tab tab_small(const Layout& L, const float* g_tab, float* sm,
+                                         int tile_c) {
+  for (int j = threadIdx.x; j < L.n_small; j += blockDim.x) sm[j] = g_tab[L.wall + j];
   Tab T;
-  T.t = sm; T.g = sm + L.n_tab; T.L = L;
+  T.small = sm; T.sph = nullptr; T.g = nullptr;
+  T.s0 = 0; T.c0 = 0; T.tc = tile_c; T.ts = tile_c * CHUNK; T.L = L;
   return T;
+}
+
+// ---------------------------------------------------------------------------
+// The sphere ring: tiles of whole chunks, copied with cp.async into two
+// buffers, the next tile in flight while the block works on the current
+// one. Position q of a block's sequence holds tile q % n_tiles in buffer
+// q & 1; a scene of at most two tiles is copied once and stays.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Issues (and commits) the copy of tile t's sphere columns and gates into
+// `buf`: 16-byte copies of the columns (n_s_pad and the tile are whole
+// chunks of 8 floats, the table 16-byte aligned), 4-byte ones of the gates.
+__device__ __forceinline__ void tile_issue(const Layout& L, const float* g_tab,
+                                           const float* g_gate, int t, int tile_c, float* buf) {
+  const int c0 = t * tile_c;
+  const int nc = min(tile_c, L.n_chunks - c0);
+  const int n4 = nc * (CHUNK / 4), ts = tile_c * CHUNK;
+  for (int j = threadIdx.x; j < N_SPH * n4; j += blockDim.x) {
+    const int col = j / n4, q = j - col * n4;
+    cp_async16(buf + col * ts + 4 * q, g_tab + (size_t)col * L.n_s_pad + c0 * CHUNK + 4 * q);
+  }
+  float* gb = buf + N_SPH * ts;
+  for (int j = threadIdx.x; j < N_GATE * nc; j += blockDim.x) {
+    const int row = j / nc, q = j - row * nc;
+    cp_async4(gb + row * tile_c + q, g_gate + (size_t)row * L.n_chunks + c0 + q);
+  }
+  cp_async_commit();
+}
+
+struct Ring {
+  const float* g_tab;
+  const float* g_gate;
+  float* buf;  // two tiles of tile_floats(tile_c)
+  int n_tiles, tile_c, q;
+  bool resident;
+
+  __device__ __forceinline__ float* slot(int k) const { return buf + k * tile_floats(tile_c); }
+
+  // Starts the copies: the whole ring (at most two tiles, waited for here)
+  // or the first tile. Every thread calls it; ends with a __syncthreads.
+  __device__ __forceinline__ void start(const Layout& L) {
+    q = 0;
+    resident = n_tiles <= 2;
+    for (int t = 0; t < (resident ? n_tiles : 1); ++t) tile_issue(L, g_tab, g_gate, t, tile_c, slot(t));
+    if (resident) cp_async_wait<0>();
+    __syncthreads();
+  }
+
+  // The buffer of the tile at the current position (tile q % n_tiles):
+  // issues the next position's tile into the other buffer, waits for this
+  // one. Every thread calls it; a streaming ring's ends with a
+  // __syncthreads.
+  __device__ __forceinline__ const float* acquire(const Layout& L) {
+    if (resident) return slot(q % n_tiles);
+    tile_issue(L, g_tab, g_gate, (q + 1) % n_tiles, tile_c, slot((q + 1) & 1));
+    cp_async_wait<1>();
+    __syncthreads();
+    return slot(q & 1);
+  }
+
+  // Ends the current position: a streaming ring waits until every thread
+  // is done reading its buffer (the next acquire refills it), unless the
+  // caller has (`synced`: a __syncthreads since its last read).
+  __device__ __forceinline__ void release(bool synced = false) {
+    if (!resident && !synced) __syncthreads();
+    ++q;
+  }
+
+  __device__ __forceinline__ void finish() { cp_async_wait<0>(); }
+};
+
+// ---------------------------------------------------------------------------
+// Culling the chunks for a warp: one conservative test per chunk, from the
+// bounds of the warp's rays, before each lane's exact gate.
+// ---------------------------------------------------------------------------
+
+// The warp's ray bounds into `wb` (N_BND floats of shared memory, the
+// warp's own): min and max over its valid lanes of each origin and
+// reciprocal-direction component, and a flag (not 0) if a valid lane has a
+// component that is not finite. Every lane of the warp calls it; ends with
+// a __syncwarp.
+__device__ __forceinline__ void warp_bounds(bool valid, const float o[3], const float iv[3],
+                                            float* wb) {
+  bool bad = false;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    float lo = valid ? o[k] : INFINITY, hi = valid ? o[k] : -INFINITY;
+    float ilo = valid ? iv[k] : INFINITY, ihi = valid ? iv[k] : -INFINITY;
+    bad |= valid && !(isfinite(o[k]) && isfinite(iv[k]));
+#pragma unroll
+    for (int off = 16; off; off >>= 1) {
+      lo = fminf(lo, __shfl_xor_sync(FULL, lo, off));
+      hi = fmaxf(hi, __shfl_xor_sync(FULL, hi, off));
+      ilo = fminf(ilo, __shfl_xor_sync(FULL, ilo, off));
+      ihi = fmaxf(ihi, __shfl_xor_sync(FULL, ihi, off));
+    }
+    if ((threadIdx.x & 31) == 0) {
+      wb[k] = lo; wb[3 + k] = hi; wb[6 + k] = ilo; wb[9 + k] = ihi;
+    }
+  }
+  const bool any_bad = __any_sync(FULL, bad);
+  if ((threadIdx.x & 31) == 0) wb[12] = any_bad ? 1.0f : 0.0f;
+  __syncwarp();
+}
+
+// Whether some ray of the warp may pass chunk c's box gate: the slab test
+// of `chunk_reach` over the box of the warp's origins and reciprocal
+// directions (`wb`). Float subtraction and multiplication round
+// monotonically, so each lane's slab distance (g - o) iv lies between the
+// products of the bounds' corners, and the test rejects no chunk whose
+// exact gate a lane passes. A warp with a component that is not finite,
+// or the bounding-sphere gate, rejects nothing but chunks of padding only.
+__device__ __forceinline__ bool bounds_reach(const Tab& T, int c, const float* wb,
+                                             float tau_eff) {
+  if (T.gate(4, c) < 0.0f) return false;
+  if (T.L.gate != GATE_AABB || wb[12] != 0.0f) return true;
+  float tn = -INFINITY, tf = INFINITY;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    float lo = INFINITY, hi = -INFINITY;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float g = T.gate(6 + 3 * e + k, c);
+      const float a = g - wb[3 + k], b = g - wb[k];
+      const float p0 = a * wb[6 + k], p1 = a * wb[9 + k];
+      const float p2 = b * wb[6 + k], p3 = b * wb[9 + k];
+      lo = fminf(lo, fminf(fminf(p0, p1), fminf(p2, p3)));
+      hi = fmaxf(hi, fmaxf(fmaxf(p0, p1), fmaxf(p2, p3)));
+    }
+    tn = fmaxf(tn, lo);
+    tf = fminf(tf, hi);
+  }
+  return !(tn > tf) && !(tf <= -T_MARGIN * tau_eff);
+}
+
+// The warp's mask of the 32 chunks from cw that its rays may reach: lane j
+// tests chunk cw + j. Every lane of the warp calls it.
+__device__ __forceinline__ unsigned warp_cull(const Tab& T, int cw, const float* wb,
+                                              float tau_eff) {
+  const int c = cw + (threadIdx.x & 31);
+  return __ballot_sync(FULL, c < T.L.n_chunks && bounds_reach(T, c, wb, tau_eff));
 }
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
@@ -122,6 +311,19 @@ __device__ __forceinline__ bool chunk_reach(const Tab& T, int c, const Ray& r, f
   const float tc = s_g - dod;
   const float dist2 = oo - 2.0f * ogc + T.gate(3, c) + tc * (2.0f * (dod - s_g) + tc);
   return dist2 <= T.gate(4, c) && tc + T.gate(5, c) > -T_MARGIN * tau_eff;
+}
+
+// A lane's mask of the chunks of `cull` (its warp's mask of the 32 chunks
+// from cw) whose exact gate its ray passes.
+__device__ __forceinline__ unsigned lane_mask(const Tab& T, unsigned cull, int cw, const Ray& r,
+                                              float oo, float dod, const float iv[3],
+                                              float tau_eff) {
+  unsigned lm = 0;
+  for (; cull; cull &= cull - 1) {
+    const int b = __ffs(cull) - 1;
+    if (chunk_reach(T, cw + b, r, oo, dod, iv, tau_eff)) lm |= 1u << b;
+  }
+  return lm;
 }
 
 // ---------------------------------------------------------------------------
@@ -378,6 +580,27 @@ __device__ __forceinline__ void sky_of(const Tab& T, const float d[3], float sk[
 // row `lt` of shared memory, stride `ls` (LtRow); those of the table's other
 // entries are returned to the caller.
 // ---------------------------------------------------------------------------
+
+// Reduce-scatter of each lane's 12 values over the warp: lanes 2k and
+// 2k + 1 (k < 12) get the warp's sum of value k. The 16 slots (the last 4
+// zero) are halved over lane bits 4, 3, 2 and 1, a shuffle a kept pair at
+// each step, then summed over bit 0: 16 shuffles where 12 butterflies take
+// 60. Every lane must call it.
+__device__ __forceinline__ float warp_scatter12(const float v[12], int lane) {
+  const bool b4 = lane & 16, b3 = lane & 8, b2 = lane & 4, b1 = lane & 2;
+  float a[8], b[4], c[2];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float lo = v[j], hi = j + 8 < 12 ? v[j + 8] : 0.0f;
+    a[j] = (b4 ? hi : lo) + __shfl_xor_sync(FULL, b4 ? lo : hi, 16);
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) b[j] = (b3 ? a[j + 4] : a[j]) + __shfl_xor_sync(FULL, b3 ? a[j] : a[j + 4], 8);
+#pragma unroll
+  for (int j = 0; j < 2; ++j) c[j] = (b2 ? b[j + 2] : b[j]) + __shfl_xor_sync(FULL, b2 ? b[j] : b[j + 2], 4);
+  float d = (b1 ? c[1] : c[0]) + __shfl_xor_sync(FULL, b1 ? c[0] : c[1], 2);
+  return d + __shfl_xor_sync(FULL, d, 1);
+}
 
 // A lane's private accumulators of the light, tau and tau_z cotangents:
 // 6 per point light (position xyz, colour rgb), 6 per sun (unit direction

@@ -12,6 +12,16 @@ backward reads instead of running the two sphere passes again.
 ``soft_level_bwd`` launches csrc/soft_level_bwd.cu: the adjoint of the
 level, derived by hand, at the saved carry.
 
+Both kernels keep the small table (walls, boxes, lights, sky, tau) in
+shared memory and stream the sphere columns and chunk gates through a ring
+of two tiles of whole chunks, so any number of spheres runs
+(``soft_launch_plan`` gives a launch's tiles and shared memory). A warp
+culls each tile's chunks against the bounds of its rays before each lane's
+exact gate. On the bounce levels of large scenes ``soft_levels`` launches
+the lanes in the order of ``soft_lane_order`` (rays close in origin and
+direction together, so a warp's lanes reach the same chunks); the order
+changes no lane's arithmetic, and the backward reuses it.
+
 A sphere chunk is skipped for a lane that its gate rejects (the
 counterpart of the JAX package's ``_chunk_reachable``, without its
 ``w > 0`` term: a dead lane composites every primitive, as the JAX
@@ -20,7 +30,13 @@ exactly 0 in float32, so its contributions and all their cotangents are
 exactly 0, and skipping it changes nothing. The plain versions here
 (``soft_level_reference``, ``soft_level_bwd_reference``) do not gate: they
 run every chunk for every lane, so the kernels against them is the check
-that the gates are exact.
+that the gates are exact. Kernels and plain versions alike skip the
+padding spheres (index ``n_s`` and up, centre 1e8). That is a deliberate
+difference from the JAX package, which keeps them in its sums: a pad's
+coverage is 0 on almost every ray, but on a ray within ~2.6e-4 rad of a
+pad's direction float32 rounding of its discriminant (at 3e16, one ulp is
+2e9) can lift it to 0.5 or 1, and the pad then hides what lies behind it
+there (tests/test_torch_soft_tiles.py pins such a ray).
 
 Tables. ``soft_tables`` is the counterpart of ``_soft_param_arrays``: every
 scalar the level reads, as named 1-D arrays (JAX's keys and sizes,
@@ -78,6 +94,8 @@ __all__ = [
     "soft_level_bwd_reference",
     "soft_level_bwd",
     "soft_levels_bwd",
+    "soft_launch_plan",
+    "soft_lane_order",
 ]
 
 SOFT_CHUNK = 8  # spheres per chunk: the table's padding quantum and the gate's unit
@@ -155,11 +173,6 @@ class SoftTables:
         """``{key: 1-D view}`` of ``packed`` (by default this table's)."""
         packed = self.packed if packed is None else packed
         return {k: packed[off:off + n] for k, (off, n) in self.layout.items()}
-
-    @property
-    def smem_bytes(self) -> int:
-        """Shared memory of the forward kernel: the table and the gates."""
-        return 4 * (self.packed.numel() + len(GATE_KEYS) * self.counts["n_chunks"])
 
 
 def _pad_to(x: torch.Tensor, n: int, fill: float) -> torch.Tensor:
@@ -301,11 +314,17 @@ def _lights_of(tbl: dict, counts: dict):
     return pt, sun
 
 
-def _chunk(tbl: dict, c: int, nd: int, keys=SPH_KEYS) -> dict:
-    """Chunk ``c``'s sphere scalars as ``[SOFT_CHUNK, 1, ...]`` columns that
-    broadcast against ``nd``-dimensional ray planes."""
-    sl = slice(c * SOFT_CHUNK, (c + 1) * SOFT_CHUNK)
-    return {k: tbl["s_" + k][sl].reshape(SOFT_CHUNK, *([1] * nd)) for k in keys}
+def _chunk_size(counts: dict, c: int) -> int:
+    """Real spheres of chunk ``c`` (the padding ones are skipped: the
+    module docstring says where that differs from the JAX package)."""
+    return max(min(SOFT_CHUNK, counts["n_s"] - c * SOFT_CHUNK), 0)
+
+
+def _chunk(tbl: dict, c: int, nd: int, size: int = SOFT_CHUNK, keys=SPH_KEYS) -> dict:
+    """The first ``size`` spheres of chunk ``c`` as ``[size, 1, ...]``
+    columns that broadcast against ``nd``-dimensional ray planes."""
+    sl = slice(c * SOFT_CHUNK, c * SOFT_CHUNK + size)
+    return {k: tbl["s_" + k][sl].reshape(size, *([1] * nd)) for k in keys}
 
 
 def _wb_params(tbl: dict, kind: str, i: int) -> dict:
@@ -319,7 +338,10 @@ def _soft_t_ref(tbl: dict, counts: dict, o: V3, d: V3) -> torch.Tensor:
     tau = tbl["z_tau"][0]
     t_ref = torch.full_like(d.x, FAR)
     for c in range(counts["n_chunks"]):
-        alpha, t, _, _ = _sphere_alpha_t_scalar(_chunk(tbl, c, d.x.dim()), o, d, tau)
+        size = _chunk_size(counts, c)
+        if not size:
+            continue
+        alpha, t, _, _ = _sphere_alpha_t_scalar(_chunk(tbl, c, d.x.dim(), size), o, d, tau)
         t_ref = torch.minimum(t_ref, torch.where(alpha > ALPHA_REF, t, FAR).amin(dim=0))
     for kind, fn in (("w", _wall_alpha_t_scalar), ("b", _box_alpha_t_scalar)):
         for i in range(counts["n_" + kind]):
@@ -371,14 +393,17 @@ def _n_carry(is_last: bool) -> int:
 
 def _soft_stream_sums(tbl: dict, counts: dict, o: V3, d: V3, t_ref, is_last: bool) -> list:
     """The composite carry, every primitive added in the kernels' order:
-    the spheres one by one, then the walls, then the boxes."""
+    the real spheres one by one, then the walls, then the boxes."""
     tau, tau_z = tbl["z_tau"][0], tbl["z_tau_z"][0]
     lts = _lights_of(tbl, counts)
     carry = [torch.zeros_like(d.x) for _ in range(_n_carry(is_last))]
     for c in range(counts["n_chunks"]):
-        contrib = _sphere_contrib(lts, tau, tau_z, _chunk(tbl, c, d.x.dim()), o, d, t_ref,
+        size = _chunk_size(counts, c)
+        if not size:
+            continue
+        contrib = _sphere_contrib(lts, tau, tau_z, _chunk(tbl, c, d.x.dim(), size), o, d, t_ref,
                                   is_last)
-        for u in range(SOFT_CHUNK):
+        for u in range(size):
             carry = [a + v[u] for a, v in zip(carry, contrib)]
     for kind in ("w", "b"):
         for i in range(counts["n_" + kind]):
@@ -506,8 +531,11 @@ def soft_level_bwd_reference(tables: SoftTables, o: V3, d: V3, w: torch.Tensor,
         lts = _lights_of(tbl, counts)
         tau, tau_z = tbl["z_tau"][0], tbl["z_tau_z"][0]
         for c in range(counts["n_chunks"]):
-            sph = lanes(SPH_KEYS, SOFT_CHUNK)
-            p = {k: v + sph[k] for k, v in _chunk(base, c, nd).items()}
+            size = _chunk_size(counts, c)
+            if not size:
+                continue
+            sph = lanes(SPH_KEYS, size)
+            p = {k: v + sph[k] for k, v in _chunk(base, c, nd, size).items()}
             gi = take(_sphere_contrib(lts, tau, tau_z, p, ov, dv, t_ref, is_last), sph)
             for k, x in zip(SPH_KEYS, gi[:len(SPH_KEYS)]):
                 _add_sums(sums, layout, "s_" + k, x, c * SOFT_CHUNK)
@@ -522,56 +550,130 @@ def soft_level_bwd_reference(tables: SoftTables, o: V3, d: V3, w: torch.Tensor,
 
 _SMEM_MAX = 232448  # bytes of shared memory a block can opt in to on the H100
 _BLOCK = 256  # threads of a block of both kernels (csrc BLOCK)
+_MASK_WORDS = 8  # lane-mask words the forward keeps for its second pass (csrc MASK_WORDS)
+# Chunks of a tile of each kernel's sphere ring (csrc TILE_C of
+# soft_level.cu and soft_level_bwd.cu).
+_TILE_CHUNKS = 32
+_TILE_CHUNKS_BWD = 64
+# Bounce levels of scenes of at least this many chunks launch their lanes
+# in ``soft_lane_order``. At 1920x1080 on the H100 the sort (~0.9 ms) and
+# the sorted last level beat the natural order from 256 spheres (32 chunks)
+# up and lose at 64 and 128 (tools/soft_variants.py, PERF.md).
+SOFT_ORDER_MIN_CHUNKS = 32
+
+
+def _round4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def soft_launch_plan(counts: dict) -> dict:
+    """The kernels' launch for a table of ``counts`` (``SoftTables.counts``):
+    the chunks of a tile of each kernel's sphere ring of two tiles, its
+    tiles, whether the forward's ring holds every tile at once
+    (``resident``), and the dynamic shared memory of the forward (``smem``)
+    and of the backward (``smem_bwd``) in bytes, which csrc/soft_level.cu
+    and soft_level_bwd.cu compute the same way. Neither depends on the
+    number of spheres."""
+    tc, tcb = _TILE_CHUNKS, _TILE_CHUNKS_BWD
+    n_small = _round4(sum(counts[s] for k, s in _PACK if not k.startswith("s_")))
+    n_lt = 6 * (counts["n_pt"] + counts["n_sun"]) + 2
+    sph = len(SPH_KEYS) * SOFT_CHUNK  # floats of a chunk's sphere columns
+    bounds = _BLOCK // 32 * 16  # each warp's ray bounds
+    n_tiles = -(-counts["n_chunks"] // tc)
+    return {
+        "tile_chunks": tc, "tile_chunks_bwd": tcb, "n_tiles": n_tiles,
+        "n_tiles_bwd": -(-counts["n_chunks"] // tcb), "resident": n_tiles <= 2,
+        "smem": 4 * (2 * (sph + len(GATE_KEYS)) * tc + n_small + _MASK_WORDS * _BLOCK + bounds),
+        "smem_bwd": 4 * (3 * sph * tcb + 2 * len(GATE_KEYS) * tcb + 2 * n_small
+                         + n_lt * _BLOCK + bounds),
+    }
 
 
 def _check_soft(tables: SoftTables, gates: torch.Tensor, dev, name: str, bwd: bool = False):
     """What both kernels need on CUDA: the packed table and the gates
-    contiguous on the rays' device, and the table in shared memory."""
+    contiguous on the rays' device, and the launch's shared memory (which
+    grows with the walls, boxes and lights, never with the spheres) within
+    a block's."""
     if dev.type != "cuda":
         raise ValueError(f"{name} runs on CPU or CUDA tensors, got {dev}")
     counts = tables.counts
     _check_planes((tables.packed,), (sum(counts[s] for _, s in _PACK),), dev, name)
     _check_planes((gates,), (len(GATE_KEYS), counts["n_chunks"]), dev, name)
-    smem = tables.smem_bytes
-    if bwd:  # the shared row of the other entries' cotangents, and each lane's of the lights
-        n_lt = 6 * (counts["n_pt"] + counts["n_sun"]) + 2
-        smem += 4 * (tables.packed.numel() - 12 * counts["n_s_pad"] + n_lt * _BLOCK)
+    smem = soft_launch_plan(counts)["smem_bwd" if bwd else "smem"]
     if smem > _SMEM_MAX:
         raise ValueError(
-            f"{name}: {counts['n_s']} spheres need {smem} bytes of tables in shared "
-            f"memory, more than the {_SMEM_MAX} a block can have"
+            f"{name}: {counts['n_w']} walls, {counts['n_b']} boxes and "
+            f"{counts['n_pt'] + counts['n_sun']} lights need {smem} bytes of shared memory, "
+            f"more than the {_SMEM_MAX} a block can have"
         )
 
 
+def _check_order(order, n: int, dev, name: str):
+    if order is not None and (order.dtype != torch.int32 or order.shape != (n,)
+                              or order.device != dev or not order.is_contiguous()):
+        raise ValueError(f"{name} takes an order of {n} contiguous int32 on {dev}")
+
+
 def _scene_args(tables: SoftTables, gates: torch.Tensor) -> tuple:
+    """The launch's table arguments; the table 16-byte aligned (the ring
+    copies 16 bytes at a time), copied if it is not."""
     c = tables.counts
-    return (tables.packed.data_ptr(), tables.packed.numel(), gates.data_ptr(),
-            c["n_s_pad"], c["n_w"], c["n_b"], c["n_pt"], c["n_sun"], c["gate"])
+    packed = tables.packed if tables.packed.data_ptr() % 16 == 0 else tables.packed.clone()
+    return packed, (packed.data_ptr(), packed.numel(), gates.data_ptr(), c["n_s"],
+                    c["n_s_pad"], c["n_w"], c["n_b"], c["n_pt"], c["n_sun"], c["gate"])
+
+
+def _gathered(order, planes):
+    """Each plane's lanes in ``order`` (flat)."""
+    return [p.reshape(-1)[order] for p in planes]
+
+
+def _scattered(order, flat, shape):
+    """Planes of ``shape`` whose lane ``order[i]`` holds ``flat``'s lane i."""
+    out = []
+    for f in flat:
+        p = torch.empty_like(f)
+        p[order] = f
+        out.append(p.reshape(shape))
+    return out
 
 
 def soft_level(tables: SoftTables, gates: torch.Tensor, o: V3, d: V3, w: torch.Tensor,
-               acc: V3, is_last: bool, emit_res: bool = False):
+               acc: V3, is_last: bool, emit_res: bool = False, order=None):
     """One soft level: ``(acc + w local, w_next, o_next V3, d_next V3,
     res)`` as ``soft_level_reference`` returns them. On CPU tensors this is
     ``soft_level_reference``; on CUDA tensors it launches csrc/soft_level.cu
     on the current stream, or raises. The planes are contiguous float32 of
-    one shape on one device."""
+    one shape on one device. ``order`` (flat int32 lane indices, a
+    permutation; ``soft_lane_order``) is the order the lanes run in: it
+    changes no result (on the CPU the plain version runs on the lanes
+    gathered in that order and its outputs are scattered back)."""
     dev, shape = w.device, w.shape
     _check_planes((*o, *d, w, *acc), shape, dev, "soft_level")
+    _check_order(order, w.numel(), dev, "soft_level")
     if dev.type == "cpu":
-        return soft_level_reference(tables, o, d, w, acc, is_last, emit_res)
+        if order is None:
+            return soft_level_reference(tables, o, d, w, acc, is_last, emit_res)
+        g = _gathered(order, (*o, *d, w, *acc))
+        out = soft_level_reference(tables, V3(*g[:3]), V3(*g[3:6]), g[6], V3(*g[7:]), is_last,
+                                   emit_res)
+        flat = [*out[0], out[1], *out[2], *out[3]] + (list(out[4]) if emit_res else [])
+        p = _scattered(order, flat, shape)
+        res = torch.stack(p[10:]) if emit_res else None
+        return V3(*p[:3]), p[3], V3(*p[4:7]), V3(*p[7:10]), res
     _check_soft(tables, gates, dev, "soft_level")
-    return _soft_level_cuda(tables, gates, o, d, w, acc, is_last, emit_res)
+    return _soft_level_cuda(tables, gates, o, d, w, acc, is_last, emit_res, order)
 
 
-def _soft_level_cuda(tables, gates, o, d, w, acc, is_last, emit_res):
+def _soft_level_cuda(tables, gates, o, d, w, acc, is_last, emit_res, order):
     dev, shape = w.device, w.shape
     n_out = 10 + (1 + _n_carry(is_last) if emit_res else 0)
     out = torch.empty((n_out, *shape), dtype=torch.float32, device=dev)
     if w.numel():
         lib = _build.load("soft_level", _SIGNATURES["soft_level"])
+        _packed, scene = _scene_args(tables, gates)
         err = lib.soft_level_launch(
-            *_scene_args(tables, gates), *_ptrs((*o, *d, w, *acc)), out.data_ptr(),
+            *scene, *_ptrs((*o, *d, w, *acc, order)), out.data_ptr(),
             w.numel(), int(is_last), int(emit_res), _stream(dev),
         )
         _raise_on(err, lib, "soft_level")
@@ -585,13 +687,14 @@ soft_level.launches = 0
 
 def soft_level_bwd(tables: SoftTables, gates: torch.Tensor, o: V3, d: V3, w: torch.Tensor,
                    res: torch.Tensor, ct_acc: V3, ct_next, is_last: bool,
-                   sums: torch.Tensor) -> list:
+                   sums: torch.Tensor, order=None) -> list:
     """The backward of one level, ``[ct_o xyz, ct_d xyz, ct_w]``, as
     ``soft_level_bwd_reference`` computes it, the table's cotangent added
     into the float64 ``sums``. On CPU tensors this is
     ``soft_level_bwd_reference``; on CUDA tensors it launches
     csrc/soft_level_bwd.cu on the current stream, or raises. ``res`` is the
-    level's ``soft_level(..., emit_res=True)`` residual."""
+    level's ``soft_level(..., emit_res=True)`` residual, ``order`` the
+    order its lanes ran in (as ``soft_level`` takes it)."""
     dev, shape = w.device, w.shape
     name = "soft_level_bwd"
     _check_planes((*o, *d, w, *ct_acc), shape, dev, name)
@@ -599,21 +702,32 @@ def soft_level_bwd(tables: SoftTables, gates: torch.Tensor, o: V3, d: V3, w: tor
     if ct_next is not None:
         _check_planes(tuple(ct_next), shape, dev, name)
     _check_planes((sums,), tuple(tables.packed.shape), dev, name, torch.float64)
+    _check_order(order, w.numel(), dev, name)
     if dev.type == "cpu":
-        return soft_level_bwd_reference(tables, o, d, w, res, ct_acc, ct_next, is_last, sums)
+        if order is None:
+            return soft_level_bwd_reference(tables, o, d, w, res, ct_acc, ct_next, is_last, sums)
+        g = _gathered(order, (*o, *d, w, *ct_acc, *(ct_next if ct_next is not None else ())))
+        r = [x.reshape(-1)[order] for x in res]
+        cts = soft_level_bwd_reference(
+            tables, V3(*g[:3]), V3(*g[3:6]), g[6], torch.stack(r), V3(*g[7:10]),
+            g[10:] if ct_next is not None else None, is_last, sums)
+        return _scattered(order, cts, shape)
     _check_soft(tables, gates, dev, name, bwd=True)
-    return _soft_level_bwd_cuda(tables, gates, o, d, w, res, ct_acc, ct_next, is_last, sums)
+    return _soft_level_bwd_cuda(tables, gates, o, d, w, res, ct_acc, ct_next, is_last, sums,
+                                order)
 
 
-def _soft_level_bwd_cuda(tables, gates, o, d, w, res, ct_acc, ct_next, is_last, sums):
+def _soft_level_bwd_cuda(tables, gates, o, d, w, res, ct_acc, ct_next, is_last, sums, order):
     dev, shape, name = w.device, w.shape, "soft_level_bwd"
     cts = torch.empty((7, *shape), dtype=torch.float32, device=dev)
     if w.numel():
         lib = _build.load(name, _SIGNATURES[name])
+        _packed, scene = _scene_args(tables, gates)
         err = lib.soft_level_bwd_launch(
-            *_scene_args(tables, gates), *_ptrs((*o, *d, w)), res.data_ptr(),
+            *scene, *_ptrs((*o, *d, w)), res.data_ptr(),
             *_ptrs(ct_acc), *_ptrs(ct_next if ct_next is not None else (None,) * 7),
-            cts.data_ptr(), sums.data_ptr(), w.numel(), int(is_last), _stream(dev),
+            _ptrs((order,))[0], cts.data_ptr(), sums.data_ptr(), w.numel(), int(is_last),
+            _stream(dev),
         )
         _raise_on(err, lib, name)
         soft_level_bwd.launches += 1
@@ -623,37 +737,77 @@ def _soft_level_bwd_cuda(tables, gates, o, d, w, res, ct_acc, ct_next, is_last, 
 soft_level_bwd.launches = 0
 
 
+_SPREAD6: dict = {}
+
+
+def _spread6(dev) -> torch.Tensor:
+    """[1024] int64: each 10-bit value with its bits 6 apart (bit b at 6 b)."""
+    lut = _SPREAD6.get(dev)
+    if lut is None:
+        v = torch.arange(1024, dtype=torch.int64)
+        lut = torch.zeros_like(v)
+        for b in range(10):
+            lut |= ((v >> b) & 1) << (6 * b)
+        lut = _SPREAD6[dev] = lut.to(dev)
+    return lut
+
+
+def soft_lane_order(o: V3, d: V3) -> torch.Tensor:
+    """A lane order (flat int32 indices) that puts rays with close origins
+    and directions together: the rays sorted by the 60-bit Morton code of
+    their origin (10 bits an axis over the rays' box) and direction (10 bits
+    an axis over [-1, 1]), the six coordinates' bits interleaved, so a warp
+    and a block hold rays that reach the same sphere chunks."""
+    lut = _spread6(d.x.device)
+    key = None
+    for j, (c, lo, hi) in enumerate(
+            [(c.reshape(-1), c.amin(), c.amax()) for c in o]
+            + [(c.reshape(-1), -1.0, 1.0) for c in d]):
+        span = torch.clamp_min(torch.as_tensor(hi - lo, dtype=torch.float32), 1e-12)
+        q = torch.nan_to_num((c - lo) / span * 1023.0).clamp(0, 1023).to(torch.int64)
+        code = lut[q] << j
+        key = code if key is None else key | code
+    return torch.argsort(key, stable=True).to(torch.int32)
+
+
+def _orders_level(counts: dict, k: int) -> bool:
+    """Whether ``soft_levels`` launches level ``k`` in ``soft_lane_order``."""
+    return k > 0 and counts["n_chunks"] >= SOFT_ORDER_MIN_CHUNKS
+
+
 def soft_levels(tables: SoftTables, gates: torch.Tensor, o: V3, d: V3, depth: int,
                 emit_res: bool = False):
     """Every soft level of a ray tile, level 0's throughput 1: ``(rgb V3,
     levels)``; with ``emit_res``, ``levels`` holds each level's ``(o, d, w,
-    res)`` for the backward, else it is empty. The counterpart of the JAX
+    res, order)`` for the backward (``order`` None where the level ran in
+    the natural order), else it is empty. The counterpart of the JAX
     package's ``_soft_levels_impl`` (its ``_prep_rays`` padding is not
     needed: the kernel takes any number of lanes)."""
     w = torch.ones_like(d.x)
     acc = V3(*(torch.zeros_like(w) for _ in range(3)))
     levels = []
     for k in range(depth + 1):
+        order = soft_lane_order(o, d) if _orders_level(tables.counts, k) else None
         acc_n, w_n, o_n, d_n, res = soft_level(tables, gates, o, d, w, acc, k == depth,
-                                               emit_res)
+                                               emit_res, order)
         if emit_res:
-            levels.append((o, d, w, res))
+            levels.append((o, d, w, res, order))
         acc, w, o, d = acc_n, w_n, o_n, d_n
     return acc, levels
 
 
 def soft_levels_bwd(tables: SoftTables, gates: torch.Tensor, levels: list, ct_acc: V3):
     """The backward of ``soft_levels(..., emit_res=True)``: ``(ct_o V3, ct_d
-    V3, ct_packed)``. ``soft_level_bwd`` for the levels in reverse, each
-    level's ray and throughput cotangents feeding the level before; the
-    table's cotangent summed in float64 over all levels. The counterpart of
-    ``_soft_levels_bwd_impl``."""
+    V3, ct_packed)``. ``soft_level_bwd`` for the levels in reverse, each in
+    its forward's lane order, each level's ray and throughput cotangents
+    feeding the level before; the table's cotangent summed in float64 over
+    all levels. The counterpart of ``_soft_levels_bwd_impl``."""
     sums = torch.zeros(tables.packed.shape, dtype=torch.float64, device=tables.packed.device)
     ct = None
     depth = len(levels) - 1
     for k in reversed(range(depth + 1)):
-        o, d, w, res = levels[k]
-        ct = soft_level_bwd(tables, gates, o, d, w, res, ct_acc, ct, k == depth, sums)
+        o, d, w, res, order = levels[k]
+        ct = soft_level_bwd(tables, gates, o, d, w, res, ct_acc, ct, k == depth, sums, order)
     return V3(*ct[:3]), V3(*ct[3:6]), sums.float()
 
 
@@ -670,16 +824,18 @@ class _SoftTrace(torch.autograd.Function):
         acc, levels = soft_levels(tables, gates, V3(ox, oy, oz), V3(dx, dy, dz), depth,
                                   emit_res=True)
         ctx.counts = counts
-        ctx.save_for_backward(packed, gates, *(t for lv in levels
-                                               for t in (*lv[0], *lv[1], lv[2], lv[3])))
+        ctx.ordered = [lv[4] is not None for lv in levels]
+        ctx.save_for_backward(packed, gates, *(t for lv in levels for t in (
+            *lv[0], *lv[1], lv[2], lv[3], lv[4] if lv[4] is not None else lv[3].new_empty(0))))
         return tuple(acc)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, ct_r, ct_g, ct_b):
         packed, gates, *flat = ctx.saved_tensors
-        levels = [(V3(*flat[i:i + 3]), V3(*flat[i + 3:i + 6]), flat[i + 6], flat[i + 7])
-                  for i in range(0, len(flat), 8)]
+        levels = [(V3(*flat[i:i + 3]), V3(*flat[i + 3:i + 6]), flat[i + 6], flat[i + 7],
+                   flat[i + 8] if ordered else None)
+                  for i, ordered in zip(range(0, len(flat), 9), ctx.ordered)]
         tables = SoftTables(packed.detach(), ctx.counts)
         ct = V3(*(c.contiguous() for c in (ct_r, ct_g, ct_b)))
         ct_o, ct_d, ct_packed = soft_levels_bwd(tables, gates, levels, ct)
@@ -688,17 +844,17 @@ class _SoftTrace(torch.autograd.Function):
 
 # C signatures of the exported functions of csrc/soft_level.cu and
 # csrc/soft_level_bwd.cu.
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_SCENE_ARGTYPES = [_P, _I, _P] + [_I] * 6
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SCENE_ARGTYPES = [_P, _I, _P] + [_I] * 7
 _SIGNATURES = {
     "soft_level": {
-        "soft_level_launch": (_I, _SCENE_ARGTYPES + [_P] * 11
-                              + [ctypes.c_longlong, _I, _I, _P]),
+        "soft_level_launch": (_I, _SCENE_ARGTYPES + [_P] * 12 + [_LL, _I, _I, _P]),
+        "soft_level_smem_bytes": (_LL, [_I]),
         "soft_level_error_string": (ctypes.c_char_p, [_I]),
     },
     "soft_level_bwd": {
-        "soft_level_bwd_launch": (_I, _SCENE_ARGTYPES + [_P] * 20
-                                  + [ctypes.c_longlong, _I, _P]),
+        "soft_level_bwd_launch": (_I, _SCENE_ARGTYPES + [_P] * 21 + [_LL, _I, _P]),
+        "soft_level_bwd_smem_bytes": (_LL, [_I, _I]),
         "soft_level_bwd_error_string": (ctypes.c_char_p, [_I]),
     },
 }
