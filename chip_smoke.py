@@ -8,8 +8,10 @@ nine kernels from csrc/ (one nvcc each, started together); the whole-trace
 kernels against their plain PyTorch versions on their five workloads (the
 forward with and without its residual planes, the backward on the forward's
 residuals); the per-level kernels (ray_stats, trace_level,
-trace_level_bwd) against theirs on four workloads, level by level on the
-same inputs and shortlists, then the chain end to end and its backward; a
+trace_level_bwd) against theirs on six workloads (grid-2048 at 1080p and
+five lights among them), level by level on the same inputs and shortlists, then the chain end
+to end and its backward, and the stats and a level on rays with zero, tiny
+and non-finite direction components (the stats' warp cull); a
 sweep of tile shapes and the whole-vs-per-level times; the small-scene
 render path (``render`` of sprint3 at 1920x1080, depth 3) and its training
 path (10 ``make_fit_step`` steps); the large-scene render path (``render``
@@ -51,6 +53,22 @@ prints them as one JSON line. ``--soft-compare`` runs it on the package
 unpacked at PARENT_DIR and on this one in turns (parent, change, change,
 parent), each in its own process on the same card, and with ``--out``
 writes the runs to FILE as JSON.
+
+    python3 chip_smoke.py --level-only [--root DIR]
+    python3 chip_smoke.py --level-compare PARENT_DIR [--out FILE]
+
+``--level-only`` runs the per-level diagnosis on the package at DIR
+(``ptxas -v`` and blocks per SM of ray_stats, trace_level and
+trace_level_bwd; per level of grid-1024 1920x1080 d3, c5 3840x2160 d4 and
+grid-2048 1920x1080 d3 the trace_level time with and without its stats
+tail, the lanes alive, the listed chunks, the chunk reach of a lane and the
+union of a warp, the fold's work by route and the stats cull where the
+package has their plain mirrors, and the backward's time, winners a warp
+and float64 atomics), the frames of grid-1024 and grid-2048 at 1080p d3 and
+of c5, the grid-1024 fit step, and the times of the kernels that share
+trace_common.cuh (trace_whole, trace_whole_bwd, the folds); then prints
+them as one JSON line. ``--level-compare`` runs it as ``--soft-compare``
+does.
 """
 
 from __future__ import annotations
@@ -90,12 +108,16 @@ CASES = (
 # The per-level chain's workloads. The first is the main path's shape:
 # grid-1024, the scene of BASELINE config c5 and bench.py's large frame, at
 # 1920x1080 d3. Then ragged tiles on a 9-chunk scene, boxes and 5 chunks,
-# and identity lists (one chunk) at a depth past the whole-trace class.
+# identity lists (one chunk) at a depth past the whole-trace class,
+# grid-2048 (64 chunks, a 44 KB table) at 1920x1080 d3, and five lights
+# (trace_level_bwd sums their cotangents per warp past three).
 LEVEL_CASES = (
     ("grid1024_1920x1080_d3", ("grid_sphere_scene", (1024,)), 1920, 1080, 3),
     ("grid130_333x111_d3", ("grid_sphere_scene", (130,)), 333, 111, 3),
     ("grid80boxes_256x128_d2", ("grid80_boxes", ()), 256, 128, 2),
     ("demo_640x640_d12", ("reference_demo_scene", ()), 640, 640, 12),
+    ("grid2048_1920x1080_d3", ("grid_sphere_scene", (2048,)), 1920, 1080, 3),
+    ("grid130lights_256x128_d2", ("grid130_lights", ()), 256, 128, 2),
 )
 # Tile shapes (rows, cols) of the per-level kernels' sweep: one block each.
 TILES = ((8, 32), (16, 16), (4, 64), (2, 128))
@@ -389,14 +411,23 @@ def check_trace_whole_bwd(fwd: dict, name: str, device) -> dict:
 
 
 def make_scene(spec, device):
-    """A workload's scene: a factory of models/scenes.py, or grid-80 with
-    the mixed scene's two boxes."""
+    """A workload's scene: a factory of models/scenes.py, grid-80 with the
+    mixed scene's two boxes, grid-130 with four point lights and the sun,
+    or sprint3 without its sphere."""
+    from raytracer_tpu_torch.core import types
     from raytracer_tpu_torch.models import scenes
 
     factory, args = spec
     if factory == "grid80_boxes":
         grid = scenes.grid_sphere_scene(80, device=device)
         return grid.replace(boxes=scenes.mixed_primitive_scene(device=device).boxes)
+    if factory == "grid130_lights":
+        grid = scenes.grid_sphere_scene(130, device="cpu")
+        lights = types.Lights.create(
+            point_position=[(0.0, 0.0, 0.0), (2.0, 3.0, 4.0), (-3.0, 1.0, 2.0), (1.0, -4.0, 6.0)],
+            point_color=[(1.0, 1.0, 1.0), (0.5, 0.4, 0.3), (0.2, 0.6, 0.2), (0.3, 0.3, 0.9)],
+            sun_direction=scenes.SUN_DIRECTION, sun_color=scenes.SUN_COLOR)
+        return grid.replace(lights=lights).to(device)
     if factory == "walls_only":
         scene = scenes.sprint3_scene(device=device)
         sp, mat = scene.spheres, scene.spheres.material
@@ -417,14 +448,34 @@ def frame_rays(width: int, height: int, device):
     return o, d, torch.ones(d.x.shape, dtype=torch.float32, device=device)
 
 
-def ray_stats_ops(n_c: int, alive: np.ndarray, used: np.ndarray) -> float:
+def ray_stats_ops(n_c: int, alive: np.ndarray, used: np.ndarray, cull=None) -> float:
     """Float32 operations of the stats of these lanes, reckoned from
     trace_common.cuh's `tile_stats` as ``trace_whole_ops`` is: the safe
     reciprocals and the slab clip for an alive lane (34), the segment ends,
     box and sums for a used lane (22) and the chunk gate for each chunk
     (25), and the reduction: one combine per value and lane (10 per
-    lane)."""
-    return float(34 * alive.sum() + (22 + 25 * n_c) * used.sum() + 10 * alive.size)
+    lane). With ``cull`` (``stats_cull``: per lane the chunks its warp's
+    cull passes, and the warps it judged), a used lane gates only those,
+    and each judged warp tests every chunk's box once (20 each)."""
+    gates = 25.0 * n_c * used.sum()
+    if cull is not None:
+        passes, warps = cull
+        gates = 25.0 * passes[used].sum() + 20.0 * n_c * warps
+    return float(34 * alive.sum() + 22 * used.sum() + gates + 10 * alive.size)
+
+
+def stats_cull(tables, o, d, w):
+    """``(passes, warps)`` for ``ray_stats_ops``: per lane the chunks its
+    warp's stats cull passes (``cuda_level.warp_cull_reference``), and the
+    warps with a used lane; None for a package without the cull."""
+    from raytracer_tpu_torch.ops import cuda_level
+
+    ref = getattr(cuda_level, "warp_cull_reference", None)
+    if ref is None:
+        return None
+    _, cull = ref(tables, o, d, w)
+    warp = cuda_level.lane_slots(w.shape, None, w.device)[2]
+    return cull.sum(dim=1)[warp].cpu().numpy(), int(cull.any(dim=1).sum())
 
 
 def used_lanes(tables, o, d, w) -> torch.Tensor:
@@ -442,7 +493,8 @@ def trace_level_ops(tables, listed: np.ndarray, idx: np.ndarray, alive: np.ndarr
     boxes and sky, the slab clip and every chunk of its tile's list gated
     (used lanes), the spheres of one chunk where the winner is a sphere (the
     least a lane that hits one folds), the winner's record and shading; and
-    the next level's stats (``ray_stats_ops``) where the level writes them.
+    the next level's stats (``ray_stats_ops`` of ``next_used``: alive,
+    used and the cull) where the level writes them.
     A lower bound: a lane may fold more chunks than its winner's."""
     c = tables.counts
     n_s, n_w, n_b = c["n_s"], c["n_w"], c["n_b"]
@@ -456,7 +508,7 @@ def trace_level_ops(tables, listed: np.ndarray, idx: np.ndarray, alive: np.ndarr
         ops += float(rec + shade) * (alive & (idx >= lo) & (idx < hi)).sum()
     ops += 6.0 * (alive & (idx < 0)).sum()
     if next_used is not None:
-        ops += ray_stats_ops(c["n_c"], next_used[0], next_used[1])
+        ops += ray_stats_ops(c["n_c"], *next_used)
     return ops
 
 
@@ -641,7 +693,8 @@ def check_levels(case, device, timed: bool = False, tile=None) -> dict:
         used0 = used_lanes(tables, o, d, w)
         out["stats_plain_ms"] = km["stats_plain_ms"]
         b_bytes = (7 * n + row) * 4
-        b_ops = ray_stats_ops(n_c, (w > 0).cpu().numpy(), used0.cpu().numpy())
+        b_ops = ray_stats_ops(n_c, (w > 0).cpu().numpy(), used0.cpu().numpy(),
+                              stats_cull(tables, o, d, w) if tile is None else None)
         out["stats_bound_ms"] = max(b_bytes / PEAK_BYTES_S, b_ops / PEAK_F32_S) * 1e3
         out["stats_bound_by"] = "bytes" if b_bytes / PEAK_BYTES_S >= b_ops / PEAK_F32_S else "operations"
     by_ops = []
@@ -653,8 +706,9 @@ def check_levels(case, device, timed: bool = False, tile=None) -> dict:
                   else np.full(lw_np.shape, n_c))
         nu = None
         if want_stats:
-            nu = ((res_k[k, 6] > 0).cpu().numpy(),
-                  used_lanes(tables, V3(*res_k[k, :3]), V3(*res_k[k, 3:6]), res_k[k, 6]).cpu().numpy())
+            no, nd, nw = V3(*res_k[k, :3]), V3(*res_k[k, 3:6]), res_k[k, 6]
+            nu = ((nw > 0).cpu().numpy(), used_lanes(tables, no, nd, nw).cpu().numpy(),
+                  stats_cull(tables, no, nd, nw) if tile is None else None)
         ops = trace_level_ops(tables, listed, np_i[k], lw_np, used, nu)
         bts = 4 * ((9 if last else 16) * n + 6 * int(lw_np.sum()) + (row if want_stats else 0)
                    + (th * tw + int(sl[1].clamp_min(0).sum()) if sl is not None else 0))
@@ -689,6 +743,60 @@ def check_levels(case, device, timed: bool = False, tile=None) -> dict:
     out["bwd_bound_by"] = "operations" if all(ops_b) else ("bytes" if not any(ops_b) else "mixed")
     out["chain_ms"] = event_ms(lambda: cuda_level.trace_levels(tables, o, d, w, depth, tile=tile),
                                iters=10, warmup=2)
+    return out
+
+
+def edge_rays(device, width: int = 96, height: int = 64):
+    """grid-1024's camera rays at ``width`` x ``height`` with a lane in
+    eleven given a direction that the stats' warp cull must not judge:
+    zero, one or two zero components, components of 1e-13, a NaN or an
+    infinite component (trace_common.cuh's ``cull_meets``)."""
+    from raytracer_tpu_torch.core.v3 import V3
+
+    o, d, w = frame_rays(width, height, device)
+    dx, dy, dz = (c.clone() for c in d)
+    n = dx.numel()
+    kinds = ((0.0, 0.0, 0.0), (0.0, 0.0, None), (0.0, None, None), (None, 0.0, 0.0),
+             (1e-13, -1e-13, 1e-13), (float("nan"), None, None), (None, float("inf"), None),
+             (None, None, float("-inf")), (1e-13, None, 0.0), (-0.0, -0.0, 1.0))
+    idx = torch.arange(n, device=device)
+    for j, kind in enumerate(kinds):
+        lanes = idx[(idx * 7919) % 11 == 0][j::len(kinds)]
+        for comp, v in zip((dx, dy, dz), kind):
+            if v is not None:
+                comp.view(-1)[lanes] = v
+    return o, V3(dx, dy, dz), w
+
+
+def check_cull_edges(device) -> dict:
+    """The stats kernel and one level of trace_level against their plain
+    versions on ``edge_rays``: the stats' counts, flags and reach bits, and
+    the level's selections, t (NaN where the plain t is) and next stats'
+    reach bits, bit for bit."""
+    from raytracer_tpu_torch.core.v3 import V3
+    from raytracer_tpu_torch.ops import cuda_fold, cuda_level
+
+    tables = cuda_fold.fused_tables(make_scene(("grid_sphere_scene", (1024,)), device))
+    o, d, w = edge_rays(device)
+    ks = cuda_level.ray_stats(tables, o, d, w)
+    ps = cuda_level.ray_stats_reference(tables, o, d, w)
+    sl = cuda_level.phase_a(ps, tables)
+    acc = V3(*(torch.zeros_like(w) for _ in range(3)))
+    pt, pi, _, _, _, _, pst = cuda_level.trace_level_reference(tables, sl, o, d, w, acc, False,
+                                                               None, True)
+    tt, ii = torch.empty_like(w), torch.empty(w.shape, dtype=torch.int32, device=device)
+    nxt = [torch.empty_like(w) for _ in range(7)]
+    kst = cuda_level.trace_level(tables, sl, o, d, w, V3(*(a.clone() for a in acc)), tt, ii,
+                                 nxt, False, None, True)
+    def same(a, b):  # equal, or NaN in both
+        return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+    # The used-lane count, the alive flag and the reach bits: the boxes of
+    # tiles with a non-finite segment end differ (fminf drops a NaN that
+    # torch.minimum keeps), as they did before the cull.
+    out = dict(stats=torch.equal(ks[:, 9:], ps[:, 9:]), level_i=torch.equal(ii, pi),
+               level_t=same(tt, pt), level_stats=torch.equal(kst[:, 9:], pst[:, 9:]))
+    out["ok"] = all(out.values())
     return out
 
 
@@ -1695,12 +1803,20 @@ def ptxas_start(names=("soft_level", "soft_level_bwd")) -> dict:
 
 
 def kernel_label(mangled: str) -> str:
-    """``name<true,false>`` of a mangled kernel in an anonymous namespace."""
-    m = re.search(r"\d+(\w+?_kernel)I((?:Lb[01]E)+)E", mangled)
+    """``name<true,false>`` of a mangled kernel in a namespace (``name``
+    without template arguments)."""
+    m = re.match(r"_ZN(\d+)", mangled)
+    rest = mangled[m.end() + int(m.group(1)):] if m else mangled
+    m = re.match(r"(\d+)", rest)
     if not m:
         return mangled
-    flags = re.findall(r"Lb([01])E", m.group(2))
-    return f"{m.group(1)}<{','.join('true' if b == '1' else 'false' for b in flags)}>"
+    n = int(m.group(1))
+    name, args = rest[m.end():m.end() + n], rest[m.end() + n:]
+    flags = re.match(r"I((?:Lb[01]E)+)E", args)
+    if not flags:
+        return name
+    bits = re.findall(r"Lb([01])E", flags.group(1))
+    return f"{name}<{','.join('true' if b == '1' else 'false' for b in bits)}>"
 
 
 def ptxas_finish(procs: dict) -> list:
@@ -2457,6 +2573,485 @@ def print_level(r: dict):
         )
 
 
+# ---------------------------------------------------------------------------
+# The per-level diagnosis (trace_level, trace_level_bwd) and --level-only
+# ---------------------------------------------------------------------------
+
+# (name, spheres, width, height, depth): grid-1024 at 1080p d3 (the large
+# render and fit path), c5 (grid-1024 at 4K d4, here one launch a level for
+# the whole frame, where the render path runs 4 row chunks), and grid-2048
+# at 1080p d3 (64 chunks, a 44 KB table).
+LEVEL_DIAG_SCENES = (
+    ("grid1024_1920x1080_d3", 1024, 1920, 1080, 3),
+    ("c5_grid1024_3840x2160_d4", 1024, 3840, 2160, 4),
+    ("grid2048_1920x1080_d3", 2048, 1920, 1080, 3),
+)
+# The warp's passing-lane counts below which the diagnosis reports the
+# cooperative fold's share of a warp's chunks (33: every chunk).
+PAIR_SWEEP = (4, 8, 12, 16, 33)
+
+
+def level_smem(tables, stats: bool) -> int:
+    """Dynamic shared bytes of a trace_level launch for ``tables``: the
+    package's own plan where it has one, else the table without its
+    materials, the shortlist and, with ``stats``, the stats scratch."""
+    from raytracer_tpu_torch.ops import cuda_level
+
+    plan = getattr(cuda_level, "level_smem_bytes", None)
+    if plan is not None:
+        return plan(tables, stats)
+    c = tables.counts
+    n_prim = c["n_s"] + c["n_w"] + c["n_b"]
+    words = tables.packed.numel() - 8 * n_prim + c["n_c"]
+    if stats:
+        words += 32 * 10 + (c["n_c"] + 31) // 32
+    return 4 * words
+
+
+def level_bwd_smem(tables) -> int:
+    """Dynamic shared bytes of a trace_level_bwd launch for ``tables``:
+    the package's own plan where it has one, else the table without its
+    materials and the light and sky row."""
+    from raytracer_tpu_torch.ops import cuda_level
+
+    plan = getattr(cuda_level, "level_bwd_smem_bytes", None)
+    if plan is not None:
+        return plan(tables)
+    c = tables.counts
+    n_prim = c["n_s"] + c["n_w"] + c["n_b"]
+    return 4 * (tables.packed.numel() - 8 * n_prim + 6 * (c["n_pt"] + c["n_sun"]) + 10)
+
+
+def level_reach(tables, shortlist, o, d, w, t_level, tile=None) -> dict:
+    """One level's chunk reach in the kernel's lane order (``lane_slots``;
+    the parent's layout is the same): per used lane (alive, meeting the
+    slab) the listed chunks whose gate it passes with t1 = t_ex and with t1
+    = min(t_ex, the level's t), and per warp with a used lane the union of
+    each; the alive lanes of a warp that has one."""
+    from raytracer_tpu_torch.ops import cuda_fold, cuda_level
+
+    t, c = tables.cols, tables.counts
+    (tr, tc), _, tw = cuda_level.tile_grid(w.shape, tile)
+    h, wd = w.shape
+    ys = torch.arange(h, device=w.device)[:, None]
+    xs = torch.arange(wd, device=w.device)[None, :]
+    tid = ys // tr * tw + xs // tc
+    warp = tid * 8 + ((ys % tr) * tc + xs % tc) // 32
+    n_warps = int(warp.max()) + 1
+    iv = tuple(cuda_fold._srecip(x) for x in d)
+    t0, t_ex, seg = cuda_fold._slab_segment(t, o, iv)
+    used = (w > 0) & seg
+    oo = o.x * o.x + o.y * o.y + o.z * o.z
+    do = d.x * o.x + d.y * o.y + d.z * o.z
+    t_fin = torch.minimum(t_ex, t_level)
+    chunk_list, counts = shortlist
+    lists, n_list = chunk_list.long()[tid], counts[tid]
+    r = dict(lane_ex=0, lane_fin=0, warp_ex=0, warp_fin=0)
+    for k in range(c["n_c"]):
+        listed = used & (k < n_list)
+        if not bool(listed.any()):
+            break
+        ch = lists[..., k]
+        for key, t1 in (("ex", t_ex), ("fin", t_fin)):
+            g = listed & cuda_fold._chunk_gate(t, c["gate"], ch, o, d, iv, oo, do, t0, t1)
+            r["lane_" + key] += int(g.sum())
+            r["warp_" + key] += int((torch.bincount(warp[g], minlength=n_warps) > 0).sum())
+    n_used = int(used.sum())
+    n_act = int((torch.bincount(warp[used], minlength=n_warps) > 0).sum())
+    alive_w = torch.bincount(warp[w > 0], minlength=n_warps)
+    out = dict(used=n_used, warps_used=n_act,
+               alive_per_warp=float(alive_w[alive_w > 0].float().mean()) if bool((alive_w > 0).any()) else 0.0)
+    for key in ("ex", "fin"):
+        out[f"lane_reach_{key}"] = r["lane_" + key] / max(n_used, 1)
+        out[f"warp_union_{key}"] = r["warp_" + key] / max(n_act, 1)
+        out[f"warp_ratio_{key}"] = out[f"warp_union_{key}"] / max(out[f"lane_reach_{key}"], 1e-30)
+    return out
+
+
+def pair_shares(hist: list, two: bool) -> dict:
+    """From the warp chunks' passing-lane histogram: for each K of
+    PAIR_SWEEP, the share of warp chunks folded cooperatively and the warp
+    steps they take (a lane a step; two for chunks of <= 16 spheres)."""
+    total = max(sum(hist), 1)
+    out = {}
+    for k in PAIR_SWEEP:
+        pair = sum(hist[j] for j in range(1, min(k, 33)))
+        steps = sum(hist[j] * (-(-j // 2) if two else j) for j in range(1, min(k, 33)))
+        out[k] = dict(pair_share=pair / total, pair_steps=steps,
+                      lane_chunks=sum(hist[j] for j in range(min(k, 33), 33)))
+    return out
+
+
+def bwd_scatter_stats(tables, i_k: torch.Tensor, w: torch.Tensor) -> dict:
+    """One backward level's attribute scatter in its lane order (32
+    consecutive lanes of the flat planes a warp): the distinct winners a
+    warp with a hit has, the warps with a wall or box winner, and the
+    float64 atomics of the parent's design (14 per distinct winner of each
+    warp, plus the light and sky row once per block of its grid of at most
+    8 blocks an SM), of which those to wall and box rows."""
+    c = tables.counts
+    n_s, n_prim = c["n_s"], c["n_s"] + c["n_w"] + c["n_b"]
+    n_ls = 6 * (c["n_pt"] + c["n_sun"]) + 10
+    act = ((w > 0) & (i_k >= 0)).reshape(-1)
+    lane = torch.arange(act.numel(), device=w.device)[act]
+    key = i_k.reshape(-1)[act].long()
+    warp = lane // 32
+    pairs = torch.unique(warp * (n_prim + 1) + key)
+    pw, pk = pairs // (n_prim + 1), pairs % (n_prim + 1)
+    n_warps = int(torch.unique(warp).numel())
+    wall_pairs = int((pk >= n_s).sum())
+    blocks = min(-(-act.numel() // 256), 8 * torch.cuda.get_device_properties(0).multi_processor_count)
+    return dict(warps_hit=n_warps, winners_per_warp=pairs.numel() / max(n_warps, 1),
+                wall_box_warps=int(torch.unique(pw[pk >= n_s]).numel()),
+                atomics_parent=14 * int(pairs.numel()) + n_ls * blocks,
+                atomics_parent_walls=14 * wall_pairs,
+                atomics_sphere_rows=14 * int((pk < n_s).sum()))
+
+
+def level_diagnosis_scene(n_spheres: int, width: int, height: int, depth: int, device,
+                          reach: bool = True) -> dict:
+    """Both per-level kernels level by level on grid-``n_spheres``, as the
+    chain runs them: per level the trace_level launch's time with its next
+    stats and without them (``want_stats=False`` on the same inputs), the
+    lanes alive and the listed chunks a tile; with ``reach`` also the reach
+    (``level_reach``), and where the package has the plain mirrors the
+    exact fold work by route (``pair_fold_reference``) and the next stats'
+    warp cull (``warp_cull_reference``); then per level the backward's time
+    on the cotangents its chain passes down and, with ``reach``, its scatter
+    (``bwd_scatter_stats``)."""
+    from raytracer_tpu_torch.core.v3 import V3
+    from raytracer_tpu_torch.ops import cuda_fold, cuda_level
+
+    scene = make_scene(("grid_sphere_scene", (n_spheres,)), device)
+    tables = cuda_fold.fused_tables(scene)
+    o, d, w = frame_rays(width, height, device)
+    _, t_k, i_k, res = cuda_level.trace_levels(tables, o, d, w, depth, emit_res=True)
+    levels = cuda_fold.Residuals(o, d, w, t_k, i_k, res)
+    out = dict(n_c=tables.counts["n_c"], unroll=tables.counts["unroll"],
+               smem=level_smem(tables, True), smem_last=level_smem(tables, False),
+               stats_ms=event_ms(lambda: cuda_level.ray_stats(tables, o, d, w)), levels=[])
+    stats = cuda_level.ray_stats(tables, o, d, w)
+    pair_ref = getattr(cuda_level, "pair_fold_reference", None)
+    cull_ref = getattr(cuda_level, "warp_cull_reference", None)
+    k_min = getattr(cuda_level, "PAIR_MIN_LANES", None)
+    zero = V3(*(torch.zeros_like(w) for _ in range(3)))
+    for k in range(depth + 1):
+        lo, ld, lw = levels.level(k)
+        last = k == depth
+        sl = cuda_level.phase_a(stats, tables)
+        tt, ii = torch.empty_like(w), torch.empty(w.shape, dtype=torch.int32, device=device)
+        nxt = None if last else [torch.empty_like(w) for _ in range(7)]
+        acc = V3(*(torch.zeros_like(w) for _ in range(3)))
+
+        def launch(want):
+            return cuda_level.trace_level(tables, sl, lo, ld, lw, acc, tt, ii, nxt, last,
+                                          None, want)
+
+        row = dict(level=k, ms=event_ms(lambda: launch(not last)),
+                   alive=int((lw > 0).sum()), listed=float(sl[1].clamp_min(0).float().mean()))
+        if not last:
+            row["ms_no_stats"] = event_ms(lambda: launch(False))
+        if reach:
+            row.update(level_reach(tables, sl, lo, ld, lw, t_k[k]))
+        if reach and pair_ref is not None:
+            work = pair_ref(tables, sl, lo, ld, lw, zero, last, k_min)[1]
+            row["fold_work"] = work
+            row["lane_reach_exact"] = work["lane_chunks"] / max(work["used"], 1)
+            row["warp_union_exact"] = work["warp_chunks"] / max(work["warps"], 1)
+            row["warp_ratio_exact"] = row["warp_union_exact"] / max(row["lane_reach_exact"], 1e-30)
+            row["pair_shares"] = pair_shares(work["pass_hist"], tables.counts["unroll"] <= 16)
+        stats = launch(not last)
+        if reach and cull_ref is not None and not last:
+            nw = res[k, 6]
+            _, cull = cull_ref(tables, V3(*res[k, :3]), V3(*res[k, 3:6]), nw)
+            used_w = cull.any(dim=1)
+            row["next_cull_per_warp"] = float(cull[used_w].sum(dim=1).float().mean()) if bool(used_w.any()) else 0.0
+        out["levels"].append(row)
+    gen = torch.Generator().manual_seed(1234)
+    ct = V3(*(torch.randn(w.shape, generator=gen).to(device) for _ in range(3)))
+    attrs, ls = (a.detach() for a in cuda_fold.attribute_tables(scene))
+    sums = (torch.zeros(attrs.shape, dtype=torch.float64, device=device),
+            torch.zeros(ls.shape, dtype=torch.float64, device=device))
+    cts = [None]
+    for k in reversed(range(depth + 1)):
+        lo, ld, lw = levels.level(k)
+        cts.insert(0, cuda_level.trace_level_bwd(tables, attrs, ls, lo, ld, lw, t_k[k], i_k[k],
+                                                 ct, cts[0], k == depth, sums))
+    for k in range(depth + 1):
+        lo, ld, lw = levels.level(k)
+        cn = cts[k + 1]
+        out["levels"][k]["bwd_ms"] = event_ms(
+            lambda: cuda_level.trace_level_bwd(tables, attrs, ls, lo, ld, lw, t_k[k], i_k[k],
+                                               ct, cn, k == depth, sums))
+        if reach:
+            out["levels"][k]["bwd"] = bwd_scatter_stats(tables, i_k[k], lw)
+    out["fwd_ms"] = [r["ms"] for r in out["levels"]]
+    out["bwd_ms_list"] = [r["bwd_ms"] for r in out["levels"]]
+    return out
+
+
+def compaction_variant(n_spheres: int, width: int, height: int, depth: int, device) -> dict:
+    """Dead-lane compaction of the bounce levels, measured: for each level
+    k >= 1 of grid-``n_spheres`` at ``width`` x ``height``, the chain's own
+    work (``phase_a`` on the stats the previous launch wrote, then
+    ``trace_level`` with the next stats) against the compacted level: the
+    alive lanes gathered in order (``nonzero``, a host sync) into full rows
+    of ``width`` lanes, ``ray_stats`` and ``phase_a`` over those tiles,
+    ``trace_level`` on them, and t, index, accumulator and next rays
+    scattered back. Both on the same inputs, as device time (``event_ms``,
+    the host's wait in ``nonzero`` included), and the alive lanes whose
+    selection differs (other tiles give other shortlist orders, which can
+    change a lane with a non-unit direction: ROADMAP queue 3)."""
+    from raytracer_tpu_torch.core.v3 import V3
+    from raytracer_tpu_torch.ops import cuda_fold, cuda_level
+
+    tables = cuda_fold.fused_tables(make_scene(("grid_sphere_scene", (n_spheres,)), device))
+    o, d, w = frame_rays(width, height, device)
+    _, t_k, i_k, res = cuda_level.trace_levels(tables, o, d, w, depth, emit_res=True)
+    levels = cuda_fold.Residuals(o, d, w, t_k, i_k, res)
+    out = dict(name=f"grid{n_spheres}_{width}x{height}_d{depth}", levels=[])
+    stats = cuda_level.ray_stats(tables, o, d, w)
+    for k in range(depth + 1):
+        lo, ld, lw = levels.level(k)
+        last = k == depth
+        prev = stats
+        tt, ii = torch.empty_like(w), torch.empty(w.shape, dtype=torch.int32, device=device)
+        nxt = None if last else [torch.empty_like(w) for _ in range(7)]
+        acc = V3(*(torch.zeros_like(w) for _ in range(3)))
+
+        def chain():
+            sl = cuda_level.phase_a(prev, tables)
+            return cuda_level.trace_level(tables, sl, lo, ld, lw, acc, tt, ii, nxt, last, None,
+                                          not last)
+
+        stats = chain()
+        if k == 0:
+            continue
+        planes = (*lo, *ld, lw)
+
+        def compacted():
+            idx = torch.nonzero(lw.reshape(-1) > 0).squeeze(1)
+            rows = max(-(-idx.numel() // width), 1)
+            packed = torch.zeros((7, rows * width), device=device)
+            for j, x in enumerate(planes):
+                packed[j, :idx.numel()] = x.reshape(-1)[idx]
+            packed = packed.view(7, rows, width)
+            po, pd, pw = V3(*packed[:3]), V3(*packed[3:6]), packed[6]
+            pacc = V3(*(torch.zeros_like(pw) for _ in range(3)))
+            pt = torch.empty_like(pw)
+            pi = torch.empty(pw.shape, dtype=torch.int32, device=device)
+            pn = None if last else [torch.empty_like(pw) for _ in range(7)]
+            sl = cuda_level.phase_a(cuda_level.ray_stats(tables, po, pd, pw), tables)
+            cuda_level.trace_level(tables, sl, po, pd, pw, pacc, pt, pi, pn, last, None, False)
+            t_out = torch.full_like(w, float(cuda_level.MISS_T)).view(-1)
+            i_out = torch.full(w.shape, -1, dtype=torch.int32, device=device).view(-1)
+            t_out[idx] = pt.reshape(-1)[:idx.numel()]
+            i_out[idx] = pi.reshape(-1)[:idx.numel()]
+            for a, b in zip(acc, pacc):
+                a.view(-1)[idx] = b.reshape(-1)[:idx.numel()]
+            if pn is not None:
+                for a, b in zip(nxt, pn):
+                    a.view(-1)[idx] = b.reshape(-1)[:idx.numel()]
+            return t_out.view(w.shape), i_out.view(w.shape)
+
+        ct, ci = compacted()
+        out["levels"].append(dict(
+            level=k, alive=int((lw > 0).sum()), chain_ms=event_ms(chain),
+            compacted_ms=event_ms(compacted),
+            mismatches=int(((ci != i_k[k]) & (lw > 0)).sum())))
+    out["chain_ms"] = sum(r["chain_ms"] for r in out["levels"])
+    out["compacted_ms"] = sum(r["compacted_ms"] for r in out["levels"])
+    return out
+
+
+def level_diagnosis(device, procs=None) -> dict:
+    """``ptxas -v`` of the per-level kernels (registers, spills), their
+    blocks per SM at each diagnosed scene's shared bytes, and
+    ``level_diagnosis_scene`` for each of LEVEL_DIAG_SCENES."""
+    from raytracer_tpu_torch.ops import cuda_fold
+
+    rows = ptxas_finish(procs or ptxas_start(("ray_stats", "trace_level", "trace_level_bwd")))
+    out = {"ptxas": rows, "scenes": {}}
+    for name, n, width, height, depth in LEVEL_DIAG_SCENES:
+        out["scenes"][name] = level_diagnosis_scene(n, width, height, depth, device)
+    for n in sorted({n for _, n, *_ in LEVEL_DIAG_SCENES}):
+        tables = cuda_fold.fused_tables(make_scene(("grid_sphere_scene", (n,)), device))
+        for row in rows:
+            if row["source"] == "trace_level":
+                stats = row["kernel"].endswith("<true>")
+                row[f"blocks_per_sm_grid{n}"] = occupancy(row, 256, level_smem(tables, stats))
+            elif row["source"] == "trace_level_bwd" and not row["kernel"].endswith("<false>"):
+                row[f"blocks_per_sm_grid{n}"] = occupancy(row, 256, level_bwd_smem(tables))
+    return out
+
+
+def print_level_diagnosis(diag: dict):
+    for row in diag["ptxas"]:
+        occ = {k: v for k, v in row.items() if k.startswith("blocks_per_sm")}
+        print(f"level diagnosis ptxas {row['kernel']}: registers={row.get('registers')} "
+              f"spill_stores={row.get('spill_stores')} spill_loads={row.get('spill_loads')} "
+              f"{occ}", flush=True)
+    for name, sc in diag["scenes"].items():
+        print(f"level diagnosis {name}: n_c={sc['n_c']} unroll={sc['unroll']} "
+              f"smem={sc['smem']} ray_stats_ms={sc['stats_ms']:.4f}", flush=True)
+        for r in sc["levels"]:
+            exact = ""
+            if "warp_union_exact" in r:
+                exact = (f" exact: lane_reach={r['lane_reach_exact']:.3f} "
+                         f"warp_union={r['warp_union_exact']:.3f} "
+                         f"ratio={r['warp_ratio_exact']:.3f} pair_shares="
+                         + str({k: round(v['pair_share'], 3) for k, v in r['pair_shares'].items()}))
+            if "next_cull_per_warp" in r:
+                exact += f" next_cull_per_warp={r['next_cull_per_warp']:.3f}"
+            b = r["bwd"]
+            print(f"  level {r['level']}: trace_level_ms={r['ms']:.4f} "
+                  f"no_stats_ms={r.get('ms_no_stats', r['ms']):.4f} alive={r['alive']} "
+                  f"listed={r['listed']:.2f} used={r['used']} "
+                  f"lane_reach t_ex/final={r['lane_reach_ex']:.3f}/{r['lane_reach_fin']:.3f} "
+                  f"warp_union={r['warp_union_ex']:.3f}/{r['warp_union_fin']:.3f} "
+                  f"ratio={r['warp_ratio_ex']:.3f}/{r['warp_ratio_fin']:.3f} "
+                  f"alive_per_warp={r['alive_per_warp']:.2f}{exact}; "
+                  f"trace_level_bwd_ms={r['bwd_ms']:.4f} winners_per_warp="
+                  f"{b['winners_per_warp']:.3f} wall_box_warps={b['wall_box_warps']} "
+                  f"f64_atomics_parent={b['atomics_parent']} to_walls={b['atomics_parent_walls']}",
+                  flush=True)
+
+
+def shared_kernel_times(device) -> dict:
+    """The kernels that share trace_common.cuh with the per-level kernels,
+    each timed on its main frame (``event_ms``): trace_whole on sprint3
+    and grid-64 at 1920x1080 d3, trace_whole_bwd on sprint3's residuals,
+    and the closest-hit folds on sprint3 (fold_flat) and grid-1024
+    (fold_shortlist, fold_shortlist_hit) at 1920x1080."""
+    from raytracer_tpu_torch.core.v3 import V3
+    from raytracer_tpu_torch.ops import cuda_fold
+
+    out = {}
+    for name, spec in (("sprint3", ("sprint3_scene", ())), ("grid64", ("grid_sphere_scene", (64,)))):
+        scene = make_scene(spec, device)
+        tables = cuda_fold.fused_tables(scene)
+        o, d, w = frame_rays(1920, 1080, device)
+        out[f"trace_whole_{name}"] = event_ms(lambda: cuda_fold.trace_whole(tables, o, d, w, 3))
+        if name == "sprint3":
+            _, t_w, i_w, res = cuda_fold.trace_whole(tables, o, d, w, 3, emit_res=True)
+            lv = cuda_fold.Residuals(o, d, w, t_w, i_w, res)
+            attrs, ls = (a.detach() for a in cuda_fold.attribute_tables(scene))
+            gen = torch.Generator().manual_seed(7)
+            ct = V3(*(torch.randn(w.shape, generator=gen).to(device) for _ in range(3)))
+            out["trace_whole_bwd_sprint3"] = event_ms(
+                lambda: cuda_fold.trace_whole_bwd(tables, attrs, ls, lv, ct, 3))
+    out["fold_flat_sprint3"] = time_hit(("sprint3_scene", ()), 1920, 1080, device,
+                                        plain=False)["fold_flat"]["ms"]
+    g = time_hit(("grid_sphere_scene", (1024,)), 1920, 1080, device, plain=False)
+    out["fold_shortlist_grid1024"] = g["fold_shortlist"]["ms"]
+    out["fold_shortlist_hit_grid1024"] = g["fold_shortlist_hit"]["ms"]
+    return out
+
+
+def level_frames(device) -> dict:
+    """The frames and the fit step of the per-level route: ``render`` of
+    grid-1024 and grid-2048 at 1920x1080 d3 and of c5 (grid-1024 at
+    3840x2160 d4), and the grid-1024 1920x1080 d3 fit step, each with its
+    kernel launches counted."""
+    from raytracer_tpu_torch.models import scenes
+    from raytracer_tpu_torch.utils.profiler import benchmark_fit_step, benchmark_render
+
+    camera = scenes.reference_demo_camera(device=device)
+    out = {}
+    for name, n, width, height, depth, iters in (
+            ("grid1024_1920x1080_d3", 1024, 1920, 1080, 3, 20),
+            ("grid2048_1920x1080_d3", 2048, 1920, 1080, 3, 20),
+            ("c5_grid1024_3840x2160_d4", 1024, 3840, 2160, 4, 5)):
+        scene = scenes.grid_sphere_scene(n, device=device)
+        b = benchmark_render(scene, camera, width, height, depth=depth, iters=iters)
+        out[name] = dict(frame_ms=b["frame_ms"], frame_ms_all=b["frame_ms_all"])
+    lstart, _, _ = level_fit_start(device)
+    f = benchmark_fit_step(lstart, camera, 1920, 1080, depth=3, iters=5,
+                           optimizer=level_fit_optimizer)
+    out["fit_grid1024_1920x1080_d3"] = dict(step_ms=f["step_ms"], step_ms_all=f["step_ms_all"])
+    return out
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def level_only() -> int:
+    """``--level-only``: the card's line, the per-level kernels' build, the
+    level diagnosis, the frames and fit step of the per-level route, and
+    the times of the kernels that share their header, then one JSON line
+    of them all. Run by ``--level-compare`` on each tree it compares."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 1
+    import raytracer_tpu_torch
+    from raytracer_tpu_torch.ops import _build
+
+    root = str(Path(raytracer_tpu_torch.__file__).resolve().parents[1])
+    smi = card_line()
+    print(f"{smi} (package at {root})", flush=True)
+    t0 = time.perf_counter()
+    names = ["ray_stats", "trace_level", "trace_level_bwd", "trace_whole", "trace_whole_bwd",
+             "fold_flat", "fold_shortlist"]
+    procs = ptxas_start(("ray_stats", "trace_level", "trace_level_bwd"))
+    _build.build(names)
+    print(f"build: {', '.join(names)} {time.perf_counter() - t0:.1f} s", flush=True)
+    diag = level_diagnosis("cuda", procs)
+    print_level_diagnosis(diag)
+    frames = level_frames("cuda")
+    for name, f in frames.items():
+        print(f"level route {name}: {f}", flush=True)
+    shared = shared_kernel_times("cuda")
+    print(f"shared-header kernels ms: {shared}", flush=True)
+    for row in diag["ptxas"]:
+        del row["cubin"]
+    print(json.dumps({"level_compare": {"root": root, "card": smi, "diagnosis": diag,
+                                        "frames": frames, "shared": shared}}), flush=True)
+    return 0
+
+
+def level_compare(parent: str, out: str | None = None) -> int:
+    """``--level-compare PARENT``: ``--level-only`` on the package unpacked
+    at PARENT and on this checkout's, in turns (parent, change, change,
+    parent) on the same card, each in its own process; prints each run and
+    a summary, and writes the runs to ``out`` as JSON if given."""
+    here = str(Path(__file__).resolve().parent)
+    runs = []
+    for root in (parent, here, here, parent):
+        cmd = [sys.executable, str(Path(__file__).resolve()), "--level-only", "--root", root]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        lines = proc.stdout.splitlines()
+        for line in lines:
+            if not line.startswith('{"level_compare"'):
+                print(f"[{'parent' if root == parent else 'change'}] {line}", flush=True)
+        if proc.returncode:
+            print(proc.stderr[-6000:], file=sys.stderr)
+            return proc.returncode
+        runs.append(json.loads(next(x for x in lines if x.startswith('{"level_compare"'))))
+    if out:
+        Path(out).write_text(json.dumps(runs))
+    names = ("parent", "change", "change", "parent")
+    rc = [r["level_compare"] for r in runs]
+    for scene in rc[0]["diagnosis"]["scenes"]:
+        for key in ("fwd_ms", "bwd_ms_list"):
+            print(f"level compare {scene} {key} per level: "
+                  + " ".join(f"{names[i]}={[round(v, 4) for v in rc[i]['diagnosis']['scenes'][scene][key]]}"
+                             for i in range(4)), flush=True)
+    for name in rc[0]["frames"]:
+        key = "step_ms" if "step_ms" in rc[0]["frames"][name] else "frame_ms"
+        print(f"level compare {name} {key}: "
+              + " ".join(f"{names[i]}={rc[i]['frames'][name][key]:.4f}" for i in range(4)),
+              flush=True)
+    for name in rc[0]["shared"]:
+        print(f"level compare {name} ms: "
+              + " ".join(f"{names[i]}={rc[i]['shared'][name]:.4f}" for i in range(4)), flush=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -2469,10 +3064,7 @@ def main() -> int:
     )
     from raytracer_tpu_torch.models import scenes
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True,
-    ).stdout.strip().splitlines()[0]
+    smi = card_line()
     print(smi, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2526,6 +3118,10 @@ def main() -> int:
         ok &= r["ok"]
         print_level(r)
     lmain = level_results[0]
+    edges = check_cull_edges("cuda")
+    ok &= edges["ok"]
+    print(f"stats cull on edge rays (zero, tiny and non-finite directions) grid1024 96x64: "
+          f"{edges}", flush=True)
 
     sweep = tile_sweep("cuda")
     for row in sweep:
@@ -2949,10 +3545,7 @@ def soft_only() -> int:
     from raytracer_tpu_torch.ops import _build
 
     root = str(Path(raytracer_tpu_torch.__file__).resolve().parents[1])
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True,
-    ).stdout.strip().splitlines()[0]
+    smi = card_line()
     print(f"{smi} (package at {root})", flush=True)
     t0 = time.perf_counter()
     _build.build(["soft_level", "soft_level_bwd"])
@@ -3009,6 +3602,11 @@ if __name__ == "__main__":
     argv = sys.argv[1:]
     if "--root" in argv:
         sys.path.insert(0, argv[argv.index("--root") + 1])
+    if "--level-compare" in argv:
+        sys.exit(level_compare(argv[argv.index("--level-compare") + 1],
+                               argv[argv.index("--out") + 1] if "--out" in argv else None))
+    if "--level-only" in argv:
+        sys.exit(level_only())
     if "--soft-compare" in argv:
         sys.exit(soft_compare(argv[argv.index("--soft-compare") + 1],
                               argv[argv.index("--out") + 1] if "--out" in argv else None))

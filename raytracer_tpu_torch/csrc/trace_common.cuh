@@ -14,6 +14,7 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace rt {
@@ -97,6 +98,37 @@ __device__ __forceinline__ Tab tab_fold_shared(const Layout& L, const float* g_t
   T.S = sm + L.sph; T.Wt = sm + L.wall; T.B = sm + L.box; T.M = g_tab + L.mat;
   T.C = sm + L.chunk - gap; T.slab = sm + L.slab - gap; T.P = sm + L.pt - gap;
   T.U = sm + L.sun - gap; T.sky = sm + L.sky - gap;
+  return T;
+}
+
+// Floats of trace_level's shared table: the spheres as float4 (centre xyz,
+// |c|^2 - r^2), then the table without its spheres and materials.
+__host__ __device__ inline int level_table_floats(const Layout& L) {
+  return 4 * L.n_s + (L.mat - L.wall) + (L.n_tab - L.chunk);
+}
+
+// Copies trace_level's shared table (level_table_floats(L) floats) into
+// `sm4` and sets `*sph` to its spheres, one float4 each, which the fold
+// reads in one broadcast load a sphere; the view reads the spheres' columns
+// (the winner's record, one winner per lane) and the materials from
+// `g_tab`. Ends with a __syncthreads.
+__device__ __forceinline__ Tab tab_level_shared(const Layout& L, const float* g_tab, float4* sm4,
+                                                const float4** sph) {
+  for (int j = threadIdx.x; j < L.n_s; j += blockDim.x) {
+    const float* c = g_tab + L.sph + j;
+    sm4[j] = make_float4(c[0], c[L.n_s], c[2 * L.n_s], c[3 * L.n_s]);
+  }
+  float* rest = reinterpret_cast<float*>(sm4 + L.n_s);
+  const int n_wb = L.mat - L.wall, n_tail = L.n_tab - L.chunk;
+  for (int j = threadIdx.x; j < n_wb + n_tail; j += blockDim.x)
+    rest[j] = g_tab[j < n_wb ? L.wall + j : L.chunk + (j - n_wb)];
+  __syncthreads();
+  Tab T = tab_counts(L);
+  float* tail = rest + n_wb;
+  T.S = g_tab + L.sph; T.Wt = rest; T.B = rest + (L.box - L.wall); T.M = g_tab + L.mat;
+  T.C = tail; T.slab = tail + (L.slab - L.chunk); T.P = tail + (L.pt - L.chunk);
+  T.U = tail + (L.sun - L.chunk); T.sky = tail + (L.sky - L.chunk);
+  *sph = sm4;
   return T;
 }
 
@@ -239,6 +271,125 @@ __device__ __forceinline__ void fold_chunk(const Tab& T, int c, const Ray& r, co
     if (tt > 0.0f && (tt < bt || (tt == bt && i < bi))) {
       bt = tt;
       bi = i;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The warp-cooperative fold of a shortlist (trace_level.cu). Every lane of
+// the warp calls fold_chunk_shared and fold_list, in warp-uniform control
+// flow.
+// ---------------------------------------------------------------------------
+
+// Whether sphere_t of this sphere is > 0, and then its value in tt, the
+// same bits: it is > 0 only where disc >= 0 and b_half < 0, and only there
+// is sqrtf taken (a ray misses most spheres it is tested against, and sqrtf
+// of a negative operand takes its slow path).
+__device__ __forceinline__ bool sphere_ahead(float cx, float cy, float cz, float cr2,
+                                             const Ray& r, const RayTerms& q, float& tt) {
+  float s = r.dx * cx + r.dy * cy + r.dz * cz;
+  float m = r.ox * cx + r.oy * cy + r.oz * cz;
+  float b_half = q.dod - s;
+  float c_full = q.oo - 2.0f * m + cr2;
+  float disc = b_half * b_half - c_full;
+  if (!(disc >= 0.0f && b_half < 0.0f)) return false;
+  tt = -b_half - sqrtf(disc);
+  return tt > 0.0f;
+}
+
+// fold_chunk over the float4 spheres `sph` (tab_level_shared), through
+// sphere_ahead.
+__device__ __forceinline__ void fold_chunk_hit(const Tab& T, const float4* sph, int c,
+                                               const Ray& r, const RayTerms& q, float& bt,
+                                               int& bi) {
+  const int i1 = min((c + 1) * T.unroll, T.n_s);
+  for (int i = c * T.unroll; i < i1; ++i) {
+    const float4 g = sph[i];
+    float tt;
+    if (sphere_ahead(g.x, g.y, g.z, g.w, r, q, tt) && (tt < bt || (tt == bt && i < bi))) {
+      bt = tt;
+      bi = i;
+    }
+  }
+}
+
+// The spheres of chunk c for the lanes of `m` (the warp's lanes whose gate
+// passed), taken one lane's ray at a time, or two (one a half-warp) for
+// chunks of at most 16 spheres: the lane's ray and its |o|^2 and d.o go to
+// every lane by shuffles, lane j tests sphere c*unroll + j (sphere_ahead,
+// sphere_t's arithmetic), and the lexicographic minimum of (t, global
+// index) over t > 0 is merged into the lane's (bt, bi) under fold_chunk's
+// tie rule. fold_chunk keeps the same minimum, so the result is the same.
+__device__ __forceinline__ void fold_chunk_shared(const Tab& T, const float4* sph, int c,
+                                                  unsigned m, const Ray& r, const RayTerms& q,
+                                                  float& bt, int& bi) {
+  const int lane = threadIdx.x & 31;
+  const bool half = T.unroll <= 16;
+  const int j = half ? (lane & 15) : lane;
+  const int i = c * T.unroll + j;
+  const bool has = j < T.unroll && i < T.n_s;
+  const float4 g = has ? sph[i] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  while (m) {
+    const int a = __ffs(m) - 1;
+    m &= m - 1;
+    int b = a;
+    if (half && m) {
+      b = __ffs(m) - 1;
+      m &= m - 1;
+    }
+    const int src = half && lane >= 16 ? b : a;
+    Ray s;
+    RayTerms sq;
+    s.ox = __shfl_sync(FULL, r.ox, src); s.oy = __shfl_sync(FULL, r.oy, src);
+    s.oz = __shfl_sync(FULL, r.oz, src); s.dx = __shfl_sync(FULL, r.dx, src);
+    s.dy = __shfl_sync(FULL, r.dy, src); s.dz = __shfl_sync(FULL, r.dz, src);
+    sq.oo = __shfl_sync(FULL, q.oo, src); sq.dod = __shfl_sync(FULL, q.dod, src);
+    float tt, kt = INFINITY;
+    int ki = INT_MAX;
+    if (has && sphere_ahead(g.x, g.y, g.z, g.w, s, sq, tt)) {
+      kt = tt;
+      ki = i;
+    }
+#pragma unroll
+    for (int off = 16; off; off >>= 1) {
+      if (half && off == 16) continue;
+      const float ot = __shfl_xor_sync(FULL, kt, off);
+      const int oi = __shfl_xor_sync(FULL, ki, off);
+      if (ot < kt || (ot == kt && oi < ki)) {
+        kt = ot;
+        ki = oi;
+      }
+    }
+    const bool second = half && lane == b && b != a;  // b's result is the upper half's
+    kt = __shfl_sync(FULL, kt, second ? 16 : 0);
+    ki = __shfl_sync(FULL, ki, second ? 16 : 0);
+    if ((lane == a || second) && (kt < bt || (kt == bt && ki < bi))) {
+      bt = kt;
+      bi = ki;
+    }
+  }
+}
+
+// The shortlist `list` (n_list chunks, in order) into each lane's (bt, bi),
+// the spheres read from `sph` (tab_level_shared):
+// at each chunk the lanes of `seg` (alive, meeting the slab) gate it
+// against [t0, min(t_ex, bt)]; where at least K_PAIR lanes pass, each folds
+// it alone (fold_chunk_hit), else the warp folds it for them
+// (fold_chunk_shared). Either way a lane's best is the lexicographic
+// minimum over the chunks its gate passed, in list order.
+template <int K_PAIR>
+__device__ __forceinline__ void fold_list(const Tab& T, const float4* sph, const int* list,
+                                          int n_list, bool seg, const Ray& r, const RayTerms& q,
+                                          float t0, float t_ex, float& bt, int& bi) {
+  for (int k = 0; k < n_list; ++k) {
+    const int c = list[k];
+    const bool g = seg && chunk_gate(T, c, r, q, t0, fminf(t_ex, bt));
+    const unsigned m = __ballot_sync(FULL, g);
+    if (!m) continue;
+    if (__popc(m) >= K_PAIR) {
+      if (g) fold_chunk_hit(T, sph, c, r, q, bt, bi);
+    } else {
+      fold_chunk_shared(T, sph, c, m, r, q, bt, bi);
     }
   }
 }
@@ -398,6 +549,12 @@ __device__ __forceinline__ float shade_bounce(const Tab& T, float bt, int bi, bo
 
 constexpr int NSTAT = 11;
 constexpr int MAX_WARPS = 32;
+// The warp cull of the stats' chunk gates (cuda_level.warp_cull_reference):
+// the margin, relative to the largest magnitude in play and absolute, and
+// the least largest direction component of a lane the cull may judge.
+constexpr float CULL_REL = 1e-5f;
+constexpr float CULL_ABS = 1e-30f;
+constexpr float CULL_MIN_DIR = 1e-3f;
 
 // Shared scratch of tile_stats, in 32-bit words: per-warp partials
 // (MAX_WARPS x 10 floats), then the reach bitmask (ceil(n_c / 32) words).
@@ -405,8 +562,44 @@ __host__ __device__ inline int stats_scratch_words(int n_c) {
   return MAX_WARPS * 10 + (n_c + 31) / 32;
 }
 
+__device__ __forceinline__ float max_abs3(float x, float y, float z) {
+  return fmaxf(fmaxf(fabsf(x), fabsf(y)), fabsf(z));
+}
+
+// Whether chunk c's box, grown by the cull margin, meets the warp's box of
+// used segments (lo = wb[0..2], hi = wb[3..5]); `scale` is the largest
+// magnitude of the warp's origins and segment ends and of the slab.
+//
+// Why it never drops a chunk whose exact gate (chunk_gate, GATE_AABB, over
+// [t0, t_ex]) some lane passes: a pass gives a t in [t0, t_ex] inside every
+// axis' slab [(lo - o) * iv, (hi - o) * iv]. Each of those ends is two
+// float32 roundings and a rounded reciprocal away from the exact crossing,
+// so the ray's point at t lies within ~3 ulps of |lo - o| (|hi - o|) of the
+// chunk's box; and the segment ends o + t d, each two roundings, bound the
+// point within ~2 ulps of |o| + |t d|. Where a direction component is
+// clamped by srecip (|d| <= 1e-12) the gate's ray leaves o + t d by t 1e-12,
+// below 1e-9 of the magnitudes when the largest component is at least
+// CULL_MIN_DIR. All of it stays below 1e-6 of `scale` (or the chunk's own
+// magnitude), a tenth of the margin; floats only round monotonically, so
+// the grown test passes. A warp with a used lane whose origin or segment
+// ends are not finite, or whose largest direction component is below
+// CULL_MIN_DIR, is not culled.
+__device__ __forceinline__ bool cull_meets(const Tab& T, int c, const float* wb, float scale) {
+  const float lo0 = T.cc(0, c), lo1 = T.cc(1, c), lo2 = T.cc(2, c);
+  const float hi0 = T.cc(3, c), hi1 = T.cc(4, c), hi2 = T.cc(5, c);
+  const float mag = fmaxf(max_abs3(lo0, lo1, lo2), max_abs3(hi0, hi1, hi2));
+  const float margin = CULL_REL * fmaxf(scale, mag) + CULL_ABS;
+  return lo0 - margin <= wb[3] && lo1 - margin <= wb[4] && lo2 - margin <= wb[5] &&
+         hi0 + margin >= wb[0] && hi1 + margin >= wb[1] && hi2 + margin >= wb[2];
+}
+
 // Reduces the block's lanes into `row` (NSTAT + n_c floats). Every thread of
 // the block must call it; `valid` lanes lie inside the frame.
+//
+// The reach bits: after the butterfly every lane of a warp holds the box of
+// the warp's used segments; lane j tests chunk j of each group of 32 against
+// it (cull_meets, box gate only), and only the chunks of the ballot go
+// through the lanes' exact gates and a ballot each.
 __device__ __forceinline__ void tile_stats(const Tab& T, bool valid, const Ray& r, float w,
                                            float* scratch, float* row) {
   float* part = scratch;
@@ -419,12 +612,21 @@ __device__ __forceinline__ void tile_stats(const Tab& T, bool valid, const Ray& 
   float t0 = 0.0f, t_ex = 0.0f;
   const bool used = alive && slab_segment(T, r, q, t0, t_ex);
   float v[10];
+  float scale = 0.0f;
+  bool no_cull = false;
   if (used) {
     const float p1x = r.ox + t0 * r.dx, p1y = r.oy + t0 * r.dy, p1z = r.oz + t0 * r.dz;
     const float p2x = r.ox + t_ex * r.dx, p2y = r.oy + t_ex * r.dy, p2z = r.oz + t_ex * r.dz;
     v[0] = fminf(p1x, p2x); v[1] = fminf(p1y, p2y); v[2] = fminf(p1z, p2z);
     v[3] = fmaxf(p1x, p2x); v[4] = fmaxf(p1y, p2y); v[5] = fmaxf(p1z, p2z);
     v[6] = p1x; v[7] = p1y; v[8] = p1z; v[9] = 1.0f;
+    const float mag = fmaxf(fmaxf(max_abs3(r.ox, r.oy, r.oz), max_abs3(p1x, p1y, p1z)),
+                            max_abs3(p2x, p2y, p2z));
+    const bool finite = isfinite(r.ox) && isfinite(r.oy) && isfinite(r.oz) &&
+                        isfinite(p1x) && isfinite(p1y) && isfinite(p1z) &&
+                        isfinite(p2x) && isfinite(p2y) && isfinite(p2z);
+    scale = finite ? mag : 0.0f;
+    no_cull = !finite || !(max_abs3(r.dx, r.dy, r.dz) >= CULL_MIN_DIR);
   } else {
     v[0] = v[1] = v[2] = BIG;
     v[3] = v[4] = v[5] = -BIG;
@@ -438,17 +640,28 @@ __device__ __forceinline__ void tile_stats(const Tab& T, bool valid, const Ray& 
     for (int j = 3; j < 6; ++j) v[j] = fmaxf(v[j], __shfl_xor_sync(FULL, v[j], off));
 #pragma unroll
     for (int j = 6; j < 10; ++j) v[j] = v[j] + __shfl_xor_sync(FULL, v[j], off);
+    scale = fmaxf(scale, __shfl_xor_sync(FULL, scale, off));
   }
   if (lane == 0) {
 #pragma unroll
     for (int j = 0; j < 10; ++j) part[warp * 10 + j] = v[j];
   }
   __syncthreads();  // the mask is zeroed before any warp sets a bit
-  // Tube-reach union: the chunk gate over each used lane's whole segment.
+  // Tube-reach union: the chunk gate over each used lane's whole segment,
+  // for the chunks the warp's cull passes.
   if (__any_sync(FULL, used)) {
-    for (int c = 0; c < T.n_c; ++c) {
-      const unsigned b = __ballot_sync(FULL, used && chunk_gate(T, c, r, q, t0, t_ex));
-      if (lane == 0 && b) atomicOr(&mask[c >> 5], 1u << (c & 31));
+    const bool cull = T.gate == GATE_AABB && !__any_sync(FULL, no_cull);
+    const float* slab = T.slab;
+    scale = fmaxf(scale, fmaxf(max_abs3(slab[0], slab[1], slab[2]),
+                               max_abs3(slab[3], slab[4], slab[5])));
+    for (int cw = 0; cw < T.n_c; cw += 32) {
+      const int c = cw + lane;
+      unsigned pass = __ballot_sync(FULL, c < T.n_c && (!cull || cull_meets(T, c, v, scale)));
+      for (; pass; pass &= pass - 1) {
+        const int cc = cw + __ffs(pass) - 1;
+        const unsigned b = __ballot_sync(FULL, used && chunk_gate(T, cc, r, q, t0, t_ex));
+        if (lane == 0 && b) atomicOr(&mask[cc >> 5], 1u << (cc & 31));
+      }
     }
   }
   const int any_alive = __syncthreads_or(alive);
@@ -490,6 +703,13 @@ __device__ __forceinline__ void warp_add(float* dst, float v) {
   v = warp_sum(v);
   if ((threadIdx.x & 31) == 0) atomicAdd(dst, v);
 }
+
+// level_adjoint's light and sky cotangents summed over the warp into the
+// shared row `s` (warp_add: every lane of the warp calls add).
+struct WarpLsSink {
+  float* s;
+  __device__ __forceinline__ void add(int j, float v) const { warp_add(&s[j], v); }
+};
 
 // One light's diffuse and specular lobes at a hit (light_term), with the
 // intermediates its adjoint needs.
@@ -555,11 +775,12 @@ __device__ __forceinline__ void lobes_bwd(
 // image cotangent (car, cag, cab) and the cotangents of the level's outputs
 // (co, cd: the next ray; cw: the next throughput). Out, for an alive lane:
 // the cotangents of the level's inputs (c_o, c_d, c_w) and of the winner's
-// 14 gathered attributes (ca); the light and sky cotangents are summed over
-// the warp into the shared row `s_ls` (6 per point light, 6 per sun, the 10
-// sky scalars). A dead lane (w == 0) gets zeros: its caller passes its
-// cotangents through. Every lane of the warp must call it. Returns whether
-// the lane hit a primitive (its attributes have cotangents).
+// 14 gathered attributes (ca); the light and sky cotangents go to `ls`
+// (`ls.add(j, v)` for slot j of the row: 6 per point light, 6 per sun, the
+// 10 sky scalars; WarpLsSink sums them over the warp into a shared row). A
+// dead lane (w == 0) gets zeros: its caller passes its cotangents through.
+// Every lane of the warp must call it. Returns whether the lane hit a
+// primitive (its attributes have cotangents).
 //
 // Derivative rules, the same as PyTorch's autograd of the plain version:
 // every guarded sqrt, rsqrt, log and divide takes its derivative only on its
@@ -570,11 +791,12 @@ __device__ __forceinline__ void lobes_bwd(
 // the box slabs' (torch.maximum/minimum) and the clamps' against a constant
 // alike (the diffuse lobe, max(r, 1e-12), max(n2, 1e-12): the JAX package's
 // jnp.maximum(x, c), the plain version's `max_c`).
+template <class LsSink>
 __device__ __forceinline__ bool level_adjoint(
     const Tab& T, bool is_last, bool alive, const float o[3], const float d[3], float w,
     float t_sel, int bi, float car, float cag, float cab, const float co[3],
     const float cd[3], float cw, float c_o[3], float c_d[3], float& c_w, float ca[14],
-    float* s_ls) {
+    const LsSink& ls) {
   const int n_pt = T.n_pt, n_sun = T.n_sun;
   const int n_ls = 6 * (n_pt + n_sun) + 10;
   const int wall_base = T.n_s, box_base = T.n_s + T.n_w;
@@ -621,7 +843,7 @@ __device__ __forceinline__ bool level_adjoint(
       for (int j = 0; j < 3; ++j) { c_o[j] += co[j]; c_d[j] += cd[j]; }
     }
 #pragma unroll
-    for (int j = 0; j < 10; ++j) warp_add(&s_ls[n_ls - 10 + j], csky[j]);
+    for (int j = 0; j < 10; ++j) ls.add(n_ls - 10 + j, csky[j]);
   }
 
   if (!__any_sync(FULL, act)) return act;
@@ -783,7 +1005,7 @@ __device__ __forceinline__ bool level_adjoint(
       }
     }
 #pragma unroll
-    for (int j = 0; j < 6; ++j) warp_add(&s_ls[6 * li + j], cp[j]);
+    for (int j = 0; j < 6; ++j) ls.add(6 * li + j, cp[j]);
   }
   for (int si = 0; si < n_sun; ++si) {
     float cs[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
@@ -798,7 +1020,7 @@ __device__ __forceinline__ bool level_adjoint(
                 exq, cs, c_hn, c_vw, ca[11], ca[12], ca[13]);
     }
 #pragma unroll
-    for (int j = 0; j < 6; ++j) warp_add(&s_ls[6 * (n_pt + si) + j], cs[j]);
+    for (int j = 0; j < 6; ++j) ls.add(6 * (n_pt + si) + j, cs[j]);
   }
 
   // ---- adjoint of the record ----
@@ -870,6 +1092,17 @@ __device__ __forceinline__ bool level_adjoint(
     }
   }
   return act;
+}
+
+// level_adjoint with its light and sky cotangents summed over the warp into
+// the shared row `s_ls` (WarpLsSink).
+__device__ __forceinline__ bool level_adjoint(
+    const Tab& T, bool is_last, bool alive, const float o[3], const float d[3], float w,
+    float t_sel, int bi, float car, float cag, float cab, const float co[3],
+    const float cd[3], float cw, float c_o[3], float c_d[3], float& c_w, float ca[14],
+    float* s_ls) {
+  return level_adjoint(T, is_last, alive, o, d, w, t_sel, bi, car, cag, cab, co, cd, cw, c_o,
+                       c_d, c_w, ca, WarpLsSink{s_ls});
 }
 
 }  // namespace rt

@@ -14,32 +14,47 @@
 // wrapper's tile shape, tr * tc = 256) at a time, one thread per ray, and
 // walks the tiles with a grid stride; the grid is as many blocks as fit on
 // the card at once (trace_common.cuh's `persistent_grid`). The ragged edge
-// of the frame is masked. The table without its materials (spheres, walls,
-// boxes, chunk tables, slab, lights, sky: 22 KB for 1024 spheres, 44 KB for
-// 2048) is copied into shared memory; past 48 KB the launch opts in to more
-// (up to 227 KB a block); each block copies it once. The materials are read from device memory, one
-// winner per lane, through L1. The tile's shortlist (phase A's chunk order
-// and count, or every chunk in index order for an identity list) is copied
-// into shared memory, and every lane walks it: walls and boxes first, then
-// each listed chunk behind the lane's own gate against its segment [t0,
-// min(t_ex, best t)], as in trace_whole.cu. The fold breaks ties on the
-// global index, so its result does not depend on the order of the list. The
+// of the frame is masked. The table without its materials is copied into
+// shared memory, the spheres as one float4 each (centre, |c|^2 - r^2: one
+// broadcast load a sphere where the columns took four) and the walls,
+// boxes, chunk tables, slab, lights and sky as they are: 18 KB for 1024
+// spheres, 36 KB for 2048; past 48 KB the launch opts in to more (up to 227
+// KB a block); each block copies it once. The materials and the winner's
+// sphere columns are read from device memory, one winner per lane, through
+// L1. The tile's shortlist (phase A's chunk order and count, or every chunk
+// in index order for an identity list) is copied into shared memory. Each
+// lane folds walls and boxes, then the warp walks the list
+// (trace_common.cuh's `fold_list`): at each chunk every lane whose ray meets
+// the slab gates it against its segment [t0, min(t_ex, best t)], as in
+// trace_whole.cu, and a ballot counts the lanes that pass. Where at least K_PAIR pass, each of them folds the
+// chunk's spheres alone; where fewer pass (bounce rays of a 16x16 tile
+// scatter, and dead lanes leave warps half empty), the warp folds the chunk
+// for them one ray at a time, lane j testing sphere j, and a warp arg-min
+// merges the chunk's nearest hit into the lane's best. The fold breaks ties
+// on the global index, so its result depends neither on the order of the
+// list nor on who tests which sphere. A sphere a ray misses skips sqrtf's
+// slow path for negative operands (`sphere_ahead`, the same bits). The
 // shading and bounce are trace_whole.cu's (trace_common.cuh). A lane whose
 // throughput is 0 writes (MISS_T, -1) and passes its ray and throughput on
 // unchanged. With STATS, the block then reduces the next rays into the tile's
 // stats row (trace_common.cuh's `tile_stats`, which ray_stats.cu runs on
-// level 0), while they are still in registers.
+// level 0), while they are still in registers; a warp gates only the chunks
+// whose box meets its lanes' segment box (`cull_meets`).
 //
 // Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s float32): a level reads 10
 // planes (rays, throughput, accumulator) and writes 12 (t, index,
 // accumulator, throughput, next rays): 22 planes of 2,073,600 lanes at
-// 1920x1080, 182 MB, 54 us. Its arithmetic on grid-1024 is ~2-3 k float32
-// operations per alive lane (the floor wall ~40, the slab ~25, ~20 per
-// listed chunk's gate, ~22 per sphere of each chunk the gate lets through,
-// the record and the shading ~150, and ~20 per chunk for the next stats):
-// chip_smoke.py counts them on each run's data. So operations bound it; the
-// design spends them only where a lane's gate passes, and keeps every
-// intermediate in registers.
+// 1920x1080, 182 MB, 54 us; chip_smoke.py counts the bytes of each run's
+// data (dead lanes move fewer). Its arithmetic on grid-1024 is ~1.5-2.5 k
+// float32 operations per alive lane (the floor wall ~40, the slab ~25, ~26
+// per listed chunk's gate, ~22 per sphere of the chunks its gate lets
+// through, the record and the shading ~150, and the next stats), below the
+// bytes at 67 TFLOP/s: bytes bound it, 0.18 ms for a grid-1024 1080p d3
+// frame's four launches (PERF.md). The kernels build without FMA
+// contraction, so each multiply and add is an instruction of its own, at
+// half the rate the operation bound assumes; the design spends them only
+// where a lane's gate passes, keeps every intermediate in registers, and
+// keeps a warp from folding a chunk 32 times for a few lanes.
 //
 // Build with -fmad=false and without fast math (ops/_build.py): a lane's
 // selections and t are then bit-identical to the plain PyTorch version's.
@@ -51,6 +66,9 @@ namespace {
 using namespace rt;
 
 constexpr int BLOCK = 256;
+// A listed chunk whose gate fewer lanes of a warp pass is folded by the
+// whole warp (cuda_level.PAIR_MIN_LANES; chosen by measurement, PERF.md).
+constexpr int K_PAIR = 12;
 
 // The planes of one level, each [H, W]; `nxt` may be null (the last level).
 struct LevelPlanes {
@@ -66,10 +84,12 @@ __global__ void __launch_bounds__(BLOCK) trace_level_kernel(
     Layout L, const float* __restrict__ g_tab, const int* __restrict__ chunk_list,
     const int* __restrict__ counts, LevelPlanes p, float* __restrict__ stats,
     int H, int W, int tr, int tc, int tiles_w, int n_tiles, int is_last) {
-  extern __shared__ float sm[];
-  int* s_list = reinterpret_cast<int*>(sm + fold_floats(L));
-  float* scratch = sm + fold_floats(L) + L.n_c;
-  const Tab T = tab_fold_shared(L, g_tab, sm);  // ends with __syncthreads
+  extern __shared__ float4 sm4[];
+  float* sm = reinterpret_cast<float*>(sm4);
+  int* s_list = reinterpret_cast<int*>(sm + level_table_floats(L));
+  float* scratch = sm + level_table_floats(L) + L.n_c;
+  const float4* sph;
+  const Tab T = tab_level_shared(L, g_tab, sm4, &sph);  // ends with __syncthreads
 
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     int n_list = L.n_c;  // an identity list without chunk_list
@@ -91,19 +111,18 @@ __global__ void __launch_bounds__(BLOCK) trace_level_kernel(
     if (valid) {
       ray = Ray{p.ox[r], p.oy[r], p.oz[r], p.dx[r], p.dy[r], p.dz[r]};
       w = p.w[r];
-      if (w > 0.0f) {
-        const RayTerms q = ray_terms(ray);
-        float bt = MISS_T;
-        int bi = -1;
-        fold_walls_boxes(T, ray, q, bt, bi);
-        float t0, t_ex;
-        if (T.n_c && slab_segment(T, ray, q, t0, t_ex)) {
-          for (int k = 0; k < n_list; ++k) {
-            const int c = s_list[k];
-            if (!chunk_gate(T, c, ray, q, t0, fminf(t_ex, bt))) continue;
-            fold_chunk(T, c, ray, q, bt, bi);
-          }
-        }
+    }
+    const bool alive = valid && w > 0.0f;
+    const RayTerms q = ray_terms(ray);
+    float bt = MISS_T;
+    int bi = -1;
+    if (alive) fold_walls_boxes(T, ray, q, bt, bi);
+    float t0 = 0.0f, t_ex = 0.0f;
+    const bool seg = alive && T.n_c && slab_segment(T, ray, q, t0, t_ex);
+    if (__any_sync(FULL, seg))
+      fold_list<K_PAIR>(T, sph, s_list, n_list, seg, ray, q, t0, t_ex, bt, bi);
+    if (valid) {
+      if (alive) {
         float accr = p.ar[r], accg = p.ag[r], accb = p.ab[r];
         p.t[r] = shade_bounce(T, bt, bi, is_last, q, ray, w, accr, accg, accb);
         p.i[r] = bi;
@@ -149,7 +168,7 @@ int trace_level_launch(const float* tab, int n_tab, int n_s, int unroll, int n_w
   const int tiles_w = (W + tc - 1) / tc, n_tiles = tiles_w * ((H + tr - 1) / tr);
   LevelPlanes p{ox, oy, oz, dx, dy, dz, w, ar, ag, ab, t, i,
                 nox, noy, noz, ndx, ndy, ndz, nw};
-  const size_t smem = (size_t)(rt::fold_floats(L) + L.n_c +
+  const size_t smem = (size_t)(rt::level_table_floats(L) + L.n_c +
                                (stats ? rt::stats_scratch_words(L.n_c) : 0)) * sizeof(float);
   cudaStream_t s = (cudaStream_t)stream;
   int n_blocks = 0;

@@ -7,29 +7,38 @@
 // block by walking the tile's winner chunks (the TPU's way around one-hot
 // matmuls), with the light and sky cotangents reduced per tile.
 //
-// Design: one thread per ray, a grid-stride loop over the rays in a grid of
-// at most 8 blocks per SM (the wrapper sizes it). The table without its
-// materials is copied into shared memory, as trace_level.cu does; the
-// winner's materials are read from device memory. A thread reads level k's
-// saved input rays, throughput, t and index, the image cotangent and the
-// cotangents of the level's outputs (those of level k+1's inputs, which the
-// launch for level k+1 wrote; none after the last level), regathers the
-// winner by index and runs trace_common.cuh's `level_adjoint`, the adjoint
-// of `_level_math` derived by hand that trace_whole_bwd.cu runs for every
-// level in one launch. It writes the 7 cotangent planes of the level's
-// inputs; a lane whose throughput is 0 is dead at this level and passes the
-// cotangents of its outputs through.
+// Design: one thread per ray, a grid-stride loop over the rays in as many
+// blocks as fit on the card at once (trace_common.cuh's `persistent_grid`).
+// The table without its materials is copied into shared memory, as
+// trace_level.cu does; the winner's materials are read from device memory.
+// A thread reads level k's saved input rays, throughput, t and index, the
+// image cotangent and the cotangents of the level's outputs (those of level
+// k+1's inputs, which the launch for level k+1 wrote; none after the last
+// level), regathers the winner by index and runs trace_common.cuh's
+// `level_adjoint`, the adjoint of `_level_math` derived by hand that
+// trace_whole_bwd.cu runs for every level in one launch. It writes the 7
+// cotangent planes of the level's inputs; a lane whose throughput is 0 is
+// dead at this level and passes the cotangents of its outputs through.
 //
-// Sums over lanes: the light and sky cotangents are summed per warp with
-// shuffles into a shared row per block, which each block adds once into a
-// float64 row in device memory. The 14 attribute cotangents of a warp's
-// lanes that hit the same primitive are summed with shuffles (one group per
-// distinct winner, in a fixed order), and lane 0 adds the sums into a
-// float64 [n_prim, 14] table in device memory with atomicAdd: no per-block
-// [n_prim, 14] partials, which at 1024 spheres would be 1,056 blocks x 57 KB
-// per level. The float64 adds come in an order that varies between runs,
-// but their rounding (1e-16 of the sums) stays far below the float32 the
-// wrapper returns. The chain's levels add into the same two tables.
+// Sums over lanes: each lane sums its light and sky cotangents over its
+// grid stride in shared slots of its own (no shuffles, no atomics), and
+// each block adds them once into a float64 row in device memory; past three
+// lights (LANE_LS_MAX) the warps sum them per ray into a shared row, as
+// trace_whole_bwd.cu does. The 14 attribute cotangents: the lanes of a warp
+// that hit the same primitive find each other with one `__match_any_sync`
+// and sum their rows in a tree over their ranks in that group (log2 of the
+// largest group steps of 14 shuffles, none where every lane hit another
+// primitive), and each group's first lane adds the sums: a sphere's into a
+// float64 [n_prim, 14] table in device memory with atomicAdd, a wall's or a
+// box's into float32 rows in shared memory, which each block adds once into
+// the table. Walls and boxes are the rows every warp would hit: grid-1024's
+// floor alone is the winner of a third of the camera rays, and float64
+// atomics on one address serialize in L2. (Per-block sums of the sphere
+// rows too, a [n_s, 14] shared table flushed once per block, measured
+// 1.2-1.7x slower: PERF.md.) The float adds come in an order that varies
+// between runs; their rounding (float32 over a block's lanes, ~1e-6 of the
+// sums) stays within the tolerances the checks hold them to. The chain's
+// levels add into the same two tables.
 //
 // Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s float32): a level reads, for
 // every lane, the throughput, the 3 image cotangents and the 7 cotangents
@@ -39,7 +48,8 @@
 // 62 us, if every lane were alive. The arithmetic is ~550 float32
 // operations per alive lane that hits a sphere (as trace_whole_bwd.cu's
 // level) and ~60 per miss; chip_smoke.py counts bytes and operations on each
-// run's data. So bytes bound it.
+// run's data: bytes bound it, 0.20 ms for a grid-1024 1080p d3 fit step's
+// four launches (PERF.md).
 //
 // Build with -fmad=false and without fast math (ops/_build.py).
 
@@ -50,6 +60,10 @@ namespace {
 using namespace rt;
 
 constexpr int BLOCK = 256;
+// Blocks an SM that ptxas fits the registers to: 2 (114 registers, no
+// spill); 3 spills 244 bytes and measured 7% slower, 4 (476 bytes) 20%
+// slower (PERF.md).
+constexpr int MIN_BLOCKS = 2;
 
 // The planes of one level's backward, each [n]; the `cn` (cotangents of the
 // level's outputs) are all null after the last level.
@@ -61,15 +75,46 @@ struct BwdPlanes {
   float *cox, *coy, *coz, *cdx, *cdy, *cdz, *cw;
 };
 
-__global__ void __launch_bounds__(BLOCK) trace_level_bwd_kernel(
+// Light and sky slots up to which each lane keeps its own sums in shared
+// memory (LaneLsSink: 32 KB a block; three lights), past which a warp sums
+// each ray's (WarpLsSink).
+constexpr int LANE_LS_MAX = 32;
+
+// level_adjoint's light and sky cotangents summed per lane over the grid
+// stride in shared memory (slot j of lane t at s[j * BLOCK + t]); the block
+// sums them once at its end.
+struct LaneLsSink {
+  float* s;
+  __device__ __forceinline__ void add(int j, float v) const { s[j * BLOCK + threadIdx.x] += v; }
+};
+
+// The lane of the n-th (from 0) set bit of m, which has more than n.
+__device__ __forceinline__ int nth_set(unsigned m, int n) {
+  int p = 0;
+#pragma unroll
+  for (int s = 16; s; s >>= 1)
+    if (__popc(m & ((1u << (p + s)) - 1u)) <= n) p += s;
+  return p;
+}
+
+// Shared floats of the light and sky sums.
+__host__ __device__ inline int ls_floats(int n_ls) {
+  return n_ls <= LANE_LS_MAX ? n_ls * BLOCK : n_ls;
+}
+
+template <bool LANE_LS>
+__global__ void __launch_bounds__(BLOCK, MIN_BLOCKS) trace_level_bwd_kernel(
     Layout L, const float* __restrict__ g_tab, BwdPlanes p, double* __restrict__ ga,
     double* __restrict__ gl, long long n, int is_last) {
   const int n_ls = 6 * (L.n_pt + L.n_sun) + 10;
+  const int n_rows = 14 * (L.n_w + L.n_b);  // the walls' and boxes' sums
   extern __shared__ float sm[];
-  float* s_ls = sm + fold_floats(L);
-  for (int j = threadIdx.x; j < n_ls; j += BLOCK) s_ls[j] = 0.0f;
+  float* s_ls = sm + fold_floats(L);  // ls_floats(n_ls)
+  float* s_rows = s_ls + ls_floats(n_ls);
+  for (int j = threadIdx.x; j < ls_floats(n_ls) + n_rows; j += BLOCK) s_ls[j] = 0.0f;
   const Tab T = tab_fold_shared(L, g_tab, sm);  // ends with __syncthreads
   const bool has_next = p.cnox != nullptr;
+  const int lane = threadIdx.x & 31;
 
   for (long long base = (long long)blockIdx.x * BLOCK; base < n;
        base += (long long)gridDim.x * BLOCK) {
@@ -99,19 +144,34 @@ __global__ void __launch_bounds__(BLOCK) trace_level_bwd_kernel(
         car = p.car[r]; cag = p.cag[r]; cab = p.cab[r];
       }
       float c_o[3], c_d[3], c_w, ca[14];
-      const bool act = level_adjoint(T, is_last, alive, o, d, w, t_sel, bi, car, cag, cab,
-                                     co, cd, cw, c_o, c_d, c_w, ca, s_ls);
+      bool act;
+      if constexpr (LANE_LS)
+        act = level_adjoint(T, is_last, alive, o, d, w, t_sel, bi, car, cag, cab, co, cd, cw,
+                            c_o, c_d, c_w, ca, LaneLsSink{s_ls});
+      else
+        act = level_adjoint(T, is_last, alive, o, d, w, t_sel, bi, car, cag, cab, co, cd, cw,
+                            c_o, c_d, c_w, ca, WarpLsSink{s_ls});
 
-      // ---- attribute cotangents: one warp sum per distinct winner ----
-      unsigned pending = __ballot_sync(FULL, act);
-      while (pending) {
-        const int key = __shfl_sync(FULL, bi, __ffs(pending) - 1);
-        const bool mine = act && bi == key;
-        pending &= ~__ballot_sync(FULL, mine);
+      // ---- attribute cotangents: a tree sum per group of equal winners ----
+      const unsigned peers = __match_any_sync(FULL, act ? bi : -1);
+      const int rank = __popc(peers & ((1u << lane) - 1u)), size = __popc(peers);
+      const int widest = (int)__reduce_max_sync(FULL, act ? (unsigned)size : 1u);
+      for (int off = 1; off < widest; off <<= 1) {
+        const bool take = (rank & (2 * off - 1)) == 0 && rank + off < size;
+        const int src = take ? nth_set(peers, rank + off) : lane;
 #pragma unroll
         for (int c = 0; c < 14; ++c) {
-          const float v = warp_sum(mine ? ca[c] : 0.0f);
-          if ((threadIdx.x & 31) == 0) atomicAdd(&ga[14 * key + c], (double)v);
+          const float x = __shfl_sync(FULL, ca[c], src);
+          if (take) ca[c] += x;
+        }
+      }
+      if (act && rank == 0) {
+        if (bi < L.n_s) {
+#pragma unroll
+          for (int c = 0; c < 14; ++c) atomicAdd(&ga[14 * bi + c], (double)ca[c]);
+        } else {
+#pragma unroll
+          for (int c = 0; c < 14; ++c) atomicAdd(&s_rows[14 * (bi - L.n_s) + c], ca[c]);
         }
       }
       if (alive) {
@@ -128,17 +188,28 @@ __global__ void __launch_bounds__(BLOCK) trace_level_bwd_kernel(
   }
 
   __syncthreads();
-  for (int j = threadIdx.x; j < n_ls; j += BLOCK) atomicAdd(&gl[j], (double)s_ls[j]);
+  if (LANE_LS) {
+    for (int j = threadIdx.x >> 5; j < n_ls; j += BLOCK / 32) {
+      float v = 0.0f;
+      for (int k = lane; k < BLOCK; k += 32) v += s_ls[j * BLOCK + k];
+      v = warp_sum(v);
+      if (lane == 0) atomicAdd(&gl[j], (double)v);
+    }
+  } else {
+    for (int j = threadIdx.x; j < n_ls; j += BLOCK) atomicAdd(&gl[j], (double)s_ls[j]);
+  }
+  for (int j = threadIdx.x; j < n_rows; j += BLOCK)
+    if (s_rows[j] != 0.0f) atomicAdd(&ga[14 * L.n_s + j], (double)s_rows[j]);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launch `n_blocks` blocks on `stream` over the n lanes of one level. The 7
-// `cn*` planes are all null after the last level (zero cotangents). The
-// sums are added into `ga` [n_prim, 14] and `gl` [n_ls], float64. Returns
-// the CUDA error of the launch (0 on success).
+// Launch on `stream` over the n lanes of one level, in as many blocks as fit
+// on the card. The 7 `cn*` planes are all null after the last level (zero
+// cotangents). The sums are added into `ga` [n_prim, 14] and `gl` [n_ls],
+// float64. Returns the CUDA error of the launch (0 on success).
 int trace_level_bwd_launch(
     const float* tab, int n_tab, int n_s, int unroll, int n_w, int n_b, int n_pt,
     int n_sun, int gate, const float* ox, const float* oy, const float* oz,
@@ -147,25 +218,25 @@ int trace_level_bwd_launch(
     const float* cab, const float* cnox, const float* cnoy, const float* cnoz,
     const float* cndx, const float* cndy, const float* cndz, const float* cnw,
     float* cox, float* coy, float* coz, float* cdx, float* cdy, float* cdz,
-    float* cw, double* ga, double* gl, long long n, int n_blocks, int is_last,
-    void* stream) {
+    float* cw, double* ga, double* gl, long long n, int is_last, void* stream) {
   rt::Layout L = rt::make_layout(n_s, unroll, n_w, n_b, n_pt, n_sun, gate, 0);
   const bool some = cnox || cnoy || cnoz || cndx || cndy || cndz || cnw;
   const bool all = cnox && cnoy && cnoz && cndx && cndy && cndz && cnw;
-  if (L.n_tab != n_tab || n <= 0 || n_blocks <= 0 || some != all)
-    return (int)cudaErrorInvalidValue;
+  if (L.n_tab != n_tab || n <= 0 || some != all) return (int)cudaErrorInvalidValue;
   BwdPlanes p{ox, oy, oz, dx, dy, dz, w, t, i, car, cag, cab,
               cnox, cnoy, cnoz, cndx, cndy, cndz, cnw,
               cox, coy, coz, cdx, cdy, cdz, cw};
   const int n_ls = 6 * (n_pt + n_sun) + 10;
-  const size_t smem = (size_t)(rt::fold_floats(L) + n_ls) * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        trace_level_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  trace_level_bwd_kernel<<<n_blocks, BLOCK, smem, (cudaStream_t)stream>>>(
-      L, tab, p, ga, gl, n, is_last);
+  const size_t smem =
+      (size_t)(rt::fold_floats(L) + ls_floats(n_ls) + 14 * (n_w + n_b)) * sizeof(float);
+  const int groups = (int)((n + BLOCK - 1) / BLOCK < (1 << 30) ? (n + BLOCK - 1) / BLOCK
+                                                               : (1 << 30));
+  const bool lane_ls = n_ls <= LANE_LS_MAX;
+  auto kernel = lane_ls ? trace_level_bwd_kernel<true> : trace_level_bwd_kernel<false>;
+  int n_blocks = 0;
+  cudaError_t err = rt::persistent_grid(kernel, BLOCK, smem, groups, &n_blocks);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<n_blocks, BLOCK, smem, (cudaStream_t)stream>>>(L, tab, p, ga, gl, n, is_last);
   return (int)cudaGetLastError();
 }
 

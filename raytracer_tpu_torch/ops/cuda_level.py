@@ -48,16 +48,21 @@ from raytracer_tpu_torch.core.v3 import V3
 from raytracer_tpu_torch.ops import _build
 from raytracer_tpu_torch.ops.cuda_fold import (
     _AABB_PAD,
-    _BWD_BLOCKS_PER_SM,
+    GATE_AABB,
     FusedTables,
     Residuals,
+    _attr_columns,
     _check_planes,
     _check_table,
+    _fold,
+    _gather,
+    _kinds,
     _level,
+    _level_math,
+    _ls_vector,
     _raise_on,
     _slab_segment,
     _chunk_gate,
-    _sm_count,
     _srecip,
     trace_level_bwd_reference,
 )
@@ -71,10 +76,16 @@ __all__ = [
     "ray_stats",
     "phase_a",
     "trace_level_reference",
+    "lane_slots",
+    "warp_cull_reference",
+    "pair_fold_reference",
+    "PAIR_MIN_LANES",
     "trace_level",
     "trace_levels",
     "trace_level_bwd_reference",
     "trace_level_bwd",
+    "level_smem_bytes",
+    "level_bwd_smem_bytes",
     "trace_levels_bwd",
 ]
 
@@ -87,6 +98,14 @@ _BLOCK = 256  # threads of a block of every per-level kernel (csrc BLOCK)
 # the per-lane gates; the JAX package's _PER_TILE_MIN_CHUNKS.
 _PER_TILE_MIN_CHUNKS = 3
 _BIG = 1e30
+# The stats' per-warp chunk cull (``warp_cull_reference``, csrc
+# trace_common.cuh): the margin, relative to the largest magnitude in play
+# and absolute, and the least largest direction component of a culled lane.
+CULL_REL, CULL_ABS, CULL_MIN_DIR = 1e-5, 1e-30, 1e-3
+# A listed chunk whose gate fewer than this many lanes of a warp pass is
+# folded by the whole warp, one lane's ray at a time (``pair_fold_reference``;
+# csrc trace_level.cu's K_PAIR). Picked by measurement on the H100 (PERF.md).
+PAIR_MIN_LANES = 12
 
 
 def uses_shortlists(tables: FusedTables) -> bool:
@@ -125,6 +144,13 @@ def ray_stats_reference(tables: FusedTables, o: V3, d: V3, w: torch.Tensor,
     ``[tiles, NSTAT + n_c]`` (module docstring). The sums are taken in
     float32 in PyTorch's order, which may differ from the kernel's in the
     last bits; the boxes, counts, flags and reach bits are exact."""
+    return _ray_stats(tables, o, d, w, tile)
+
+
+def _ray_stats(tables: FusedTables, o: V3, d: V3, w: torch.Tensor, tile, cull=None):
+    """``ray_stats_reference``; with ``cull`` (``[warps, n_c]`` bool, the
+    kernels' warps in ``lane_slots`` order) a lane's chunk gate counts only
+    where its warp's cull passes the chunk."""
     t, counts = tables.cols, tables.counts
     (tr, tc), th, tw = tile_grid(w.shape, tile)
     h, wd = w.shape
@@ -144,10 +170,12 @@ def ray_stats_reference(tables: FusedTables, o: V3, d: V3, w: torch.Tensor,
     if counts["n_c"]:
         oo = o.x * o.x + o.y * o.y + o.z * o.z
         do = d.x * o.x + d.y * o.y + d.z * o.z
-        planes += [
-            (used & _chunk_gate(t, counts["gate"], c, o, d, iv, oo, do, t0, t_ex)).float()
-            for c in range(counts["n_c"])
-        ]
+        warp = None if cull is None else lane_slots(w.shape, tile, w.device)[2]
+        for c in range(counts["n_c"]):
+            reach = used & _chunk_gate(t, counts["gate"], c, o, d, iv, oo, do, t0, t_ex)
+            if cull is not None:
+                reach = reach & cull[warp, c]
+            planes.append(reach.float())
     fills = [_BIG] * 3 + [-_BIG] * 3 + [0.0] * (len(planes) - 6)
     x = torch.stack([
         torch.nn.functional.pad(p, (0, tw * tc - wd, 0, th * tr - h), value=f)
@@ -159,6 +187,80 @@ def ray_stats_reference(tables: FusedTables, o: V3, d: V3, w: torch.Tensor,
         x[:, 0:3].amin(dim=-1), x[:, 3:6].amax(dim=-1), x[:, 6:10].sum(dim=-1),
         x[:, 10:].amax(dim=-1),
     ], dim=1).contiguous()
+
+
+def lane_slots(shape, tile=None, device=None):
+    """Where the per-level kernels run each lane of ``[H, W]`` planes:
+    ``(tile, thread, warp)``, each ``[H, W]`` int64. A tile is one block,
+    its thread ``(y % rows) * cols + x % cols``, its warps 32 consecutive
+    threads, numbered ``tile * 8 + thread // 32`` over the whole frame."""
+    (tr, tc), _, _ = tile_grid(shape, tile)
+    h, w = shape
+    ys = torch.arange(h, device=device)[:, None]
+    xs = torch.arange(w, device=device)[None, :]
+    tid = _tile_index(shape, tile, device)
+    thread = (ys % tr) * tc + xs % tc
+    return tid, thread, tid * (_BLOCK // 32) + thread // 32
+
+
+def warp_cull_reference(tables: FusedTables, o: V3, d: V3, w: torch.Tensor, tile=None):
+    """Plain mirror of the per-warp chunk cull of the kernels' stats
+    (trace_common.cuh's ``tile_stats`` and ``cull_meets``): ``(stats,
+    cull)``, the stats rows
+    with each lane's chunk gate taken only where its warp's cull passes the
+    chunk, and the cull, ``[warps, n_c]`` bool (``lane_slots`` order).
+
+    A warp's used lanes' segment box (the stats' box, per warp) meets a
+    chunk's box grown by ``CULL_REL`` of the largest magnitude among the
+    two boxes, the lanes' origins and the slab, plus ``CULL_ABS``. Float32
+    rounding of a gate moves its crossing points by a few ulps of those
+    magnitudes, so a chunk whose gate some lane passes always meets the
+    grown box: the stats equal ``ray_stats_reference``'s bit for bit. A
+    warp with a used lane whose origin or segment ends are not finite, or
+    whose direction has no component of magnitude ``CULL_MIN_DIR`` (the
+    safe reciprocal clamps it, and the gate's ray leaves the segment box),
+    passes every chunk; the sphere gate (``GATE_SPHERE``) passes every
+    chunk too. Only the box gate is culled.
+    """
+    t, counts = tables.cols, tables.counts
+    n_c = counts["n_c"]
+    _, _, warp = lane_slots(w.shape, tile, w.device)
+    n_warps = int(warp.max()) + 1
+    iv = (_srecip(d.x), _srecip(d.y), _srecip(d.z))
+    t0, t_ex, seg_ok = _slab_segment(t, o, iv)
+    used = ((w > 0.0) & seg_ok).reshape(-1)
+    wid = warp.reshape(-1)[used]
+    p1 = [(oc + t0 * dc).reshape(-1)[used] for oc, dc in zip(o, d)]
+    p2 = [(oc + t_ex * dc).reshape(-1)[used] for oc, dc in zip(o, d)]
+    oc = [x.reshape(-1)[used] for x in o]
+    dc = [x.reshape(-1)[used] for x in d]
+
+    def per_warp(x, reduce, fill):
+        out = torch.full((n_warps,), fill, dtype=x.dtype, device=x.device)
+        return out.scatter_reduce(0, wid, x, reduce=reduce, include_self=True)
+
+    lo = [per_warp(torch.minimum(a, b), "amin", _BIG) for a, b in zip(p1, p2)]
+    hi = [per_warp(torch.maximum(a, b), "amax", -_BIG) for a, b in zip(p1, p2)]
+    mags = torch.stack([x.abs() for x in (*oc, *p1, *p2)]).amax(dim=0)
+    finite = torch.stack([torch.isfinite(x) for x in (*oc, *p1, *p2)]).all(dim=0)
+    dmax = torch.stack([x.abs() for x in dc]).amax(dim=0)
+    bad = (~finite | ~(dmax >= CULL_MIN_DIR)).to(torch.int32)
+    scale = per_warp(torch.where(finite, mags, 0.0), "amax", 0.0)
+    slab = torch.cat([t[f"slab_{s}_{x}"] for s in ("lo", "hi") for x in "xyz"]).abs().amax()
+    scale = torch.maximum(scale, slab)
+    off = per_warp(bad, "amax", 0) > 0
+    any_used = per_warp(torch.ones_like(wid, dtype=torch.int32), "amax", 0) > 0
+    c_lo, c_hi = t["c_lo"], t["c_hi"]  # [3, n_c]
+    c_mag = torch.maximum(c_lo.abs().amax(dim=0), c_hi.abs().amax(dim=0))
+    margin = CULL_REL * torch.maximum(scale[:, None], c_mag[None, :]) + CULL_ABS
+    meet = torch.ones((n_warps, n_c), dtype=torch.bool, device=w.device)
+    for k in range(3):
+        meet &= (c_lo[k][None, :] - margin <= hi[k][:, None])
+        meet &= (c_hi[k][None, :] + margin >= lo[k][:, None])
+    if counts["gate"] != GATE_AABB:
+        meet = torch.ones_like(meet)
+    cull = any_used[:, None] & (meet | off[:, None])
+    return _ray_stats(tables, o, d, w, tile, cull), cull
 
 
 def phase_a(stats: torch.Tensor, tables: FusedTables):
@@ -202,15 +304,24 @@ def trace_level_reference(tables: FusedTables, shortlist, o: V3, d: V3, w: torch
     ray, throughput and accumulator; ``stats`` is the next level's
     ``ray_stats_reference`` with ``want_stats``, else ``None``.
     """
-    lists = None
-    if shortlist is not None:
-        chunk_list, counts = shortlist
-        tid = _tile_index(w.shape, tile, w.device)
-        lists = (chunk_list.long()[tid], counts[tid])
-    alive = w > 0.0
     t_k, i_k, inc, w_n, o_n, d_n = _level(
-        tables.cols, tables.counts, o, d, w, is_last, lists
+        tables.cols, tables.counts, o, d, w, is_last, _lane_lists(shortlist, w, tile)
     )
+    return _finish_level(tables, o, d, w, acc, tile, want_stats, t_k, i_k, inc, w_n, o_n, d_n)
+
+
+def _lane_lists(shortlist, w: torch.Tensor, tile):
+    """Each lane's tile's ``(chunk order [..., n_c], length)``, or None."""
+    if shortlist is None:
+        return None
+    chunk_list, counts = shortlist
+    tid = _tile_index(w.shape, tile, w.device)
+    return chunk_list.long()[tid], counts[tid]
+
+
+def _finish_level(tables, o, d, w, acc, tile, want_stats, t_k, i_k, inc, w_n, o_n, d_n):
+    """``trace_level_reference``'s outputs from a level's unmasked ones."""
+    alive = w > 0.0
     zero = torch.zeros_like(w)
     acc = acc + V3.where(alive, inc, V3(zero, zero, zero))
     w_next = torch.where(alive, w_n, w)
@@ -219,6 +330,106 @@ def trace_level_reference(tables: FusedTables, shortlist, o: V3, d: V3, w: torch
              if want_stats else None)
     return (torch.where(alive, t_k, MISS_T), torch.where(alive, i_k, -1), acc,
             w_next, o_next, d_next, stats)
+
+
+def _sphere_t(t: dict, gi: torch.Tensor, o: V3, d: V3, oo, do):
+    """Each lane's near root at sphere ``gi`` (a per-lane index tensor), op
+    for op ``_fold``'s (NaN on a miss)."""
+    cx, cy, cz, cr2 = (t[n][gi] for n in ("cx", "cy", "cz", "cr2"))
+    s = d.x * cx + d.y * cy + d.z * cz
+    m = o.x * cx + o.y * cy + o.z * cz
+    b_half = do - s
+    c_full = oo - 2.0 * m + cr2
+    disc = b_half * b_half - c_full
+    return -b_half - torch.sqrt(disc)
+
+
+def pair_fold_reference(tables: FusedTables, shortlist, o: V3, d: V3, w: torch.Tensor,
+                        acc: V3, is_last: bool, k_min: int = PAIR_MIN_LANES, tile=None,
+                        want_stats: bool = False):
+    """Plain mirror of ``trace_level``'s warp-cooperative fold: the outputs
+    of ``trace_level_reference`` (equal to them bit for bit), and a dict of
+    the fold's work by route.
+
+    The kernel's warps (``lane_slots``) walk their tile's list in order.
+    At each listed chunk a lane's gate reads its own best t so far. Where
+    at least ``k_min`` lanes of the warp pass it, each of them folds the
+    chunk's spheres in index order (ties to the lower index); where fewer
+    pass, the warp takes those lanes one at a time (two at a time for
+    chunks of at most 16 spheres), each of its lanes computes one sphere's
+    t of that lane's ray, and the lexicographic minimum of (t, index) over
+    t > 0 is merged into the lane's best under the same tie rule. Both give
+    the lexicographic minimum, so the fold does not depend on the route.
+
+    The dict: ``lane_chunks`` (gate passes summed over lanes: the chunks a
+    lane folds), ``warp_chunks`` (chunks a warp folds: its union),
+    ``per_lane`` (warp chunks folded lane by lane), ``pair`` (warp chunks
+    folded cooperatively) and ``pair_steps`` (the warp steps those take),
+    ``used`` (lanes that fold spheres), ``warps`` (warps with one) and
+    ``pass_hist`` (the warp chunks by how many of their lanes pass, 0-32).
+    """
+    t, counts = tables.cols, tables.counts
+    n_s, unroll, n_c = counts["n_s"], counts["unroll"], counts["n_c"]
+    work = dict(lane_chunks=0, warp_chunks=0, per_lane=0, pair=0, pair_steps=0, used=0,
+                warps=0, pass_hist=[0] * 33)
+    bt, bi = _fold(t, {**counts, "n_c": 0}, o, d)  # walls and boxes
+    alive = w > 0.0
+    if n_s:
+        lists = _lane_lists(shortlist, w, tile)
+        if lists is None:
+            pos = torch.arange(n_c, dtype=torch.long, device=w.device)
+            lists = (pos.expand(*w.shape, n_c), torch.full_like(bi, n_c))
+        _, _, warp = lane_slots(w.shape, tile, w.device)
+        n_warps = int(warp.max()) + 1
+        iv = (_srecip(d.x), _srecip(d.y), _srecip(d.z))
+        t0, t_ex, seg_ok = _slab_segment(t, o, iv)
+        oo = o.x * o.x + o.y * o.y + o.z * o.z
+        do = d.x * o.x + d.y * o.y + d.z * o.z
+        seg_ok = seg_ok & alive
+        work["used"] = int(seg_ok.sum())
+        work["warps"] = int((torch.bincount(warp[seg_ok], minlength=n_warps) > 0).sum())
+        two = 2 if unroll <= 16 else 1
+        for k in range(n_c):
+            listed = seg_ok & (k < lists[1])
+            if not bool(listed.any()):
+                continue
+            c = lists[0][..., k]
+            gate = listed & _chunk_gate(t, counts["gate"], c, o, d, iv, oo, do, t0,
+                                        torch.minimum(t_ex, bt))
+            n_pass = torch.bincount(warp[gate], minlength=n_warps)
+            lane_route = gate & (n_pass[warp] >= k_min)
+            pair_route = gate & ~lane_route
+            n_pair = n_pass * (n_pass < k_min)
+            work["lane_chunks"] += int(gate.sum())
+            work["warp_chunks"] += int((n_pass > 0).sum())
+            work["per_lane"] += int((n_pass >= k_min).sum())
+            work["pair"] += int((n_pair > 0).sum())
+            work["pair_steps"] += int(((n_pair + two - 1) // two).sum())
+            hist = torch.bincount(n_pass[n_pass > 0], minlength=33).tolist()
+            work["pass_hist"] = [a + b for a, b in zip(work["pass_hist"], hist)]
+            # Per lane: the chunk's spheres in index order.
+            lt, li = bt, bi
+            pt = torch.full_like(bt, float("inf"))
+            pi = torch.full_like(bi, 2 ** 31 - 1)
+            for j in range(unroll):
+                gi = c * unroll + j
+                real = gi < n_s
+                gi32 = gi.to(torch.int32)
+                tt = _sphere_t(t, gi.clamp_max(n_s - 1), o, d, oo, do)
+                take = real & (tt > 0.0) & ((tt < lt) | ((tt == lt) & (gi32 < li)))
+                lt, li = torch.where(take, tt, lt), torch.where(take, gi32, li)
+                # Cooperatively: the lexicographic minimum over t > 0.
+                cand = real & (tt > 0.0) & ((tt < pt) | ((tt == pt) & (gi32 < pi)))
+                pt, pi = torch.where(cand, tt, pt), torch.where(cand, gi32, pi)
+            merge = pair_route & ((pt < bt) | ((pt == bt) & (pi < bi)))
+            bt = torch.where(lane_route, lt, torch.where(merge, pt, bt))
+            bi = torch.where(lane_route, li, torch.where(merge, pi, bi))
+    hit = bt < MISS_T
+    attrs = _gather(_attr_columns(t, counts), bi, hit)
+    t_k, inc, w_n, o_n, d_n = _level_math(attrs, o, d, w, bt, hit, *_kinds(bi, hit, counts),
+                                          _ls_vector(t), counts, is_last)
+    out = _finish_level(tables, o, d, w, acc, tile, want_stats, t_k, bi, inc, w_n, o_n, d_n)
+    return out, work
 
 
 # ---------------------------------------------------------------------------
@@ -391,6 +602,30 @@ def trace_levels(tables: FusedTables, o: V3, d: V3, w: torch.Tensor, depth: int,
     return out + (res,) if emit_res else out
 
 
+def level_smem_bytes(tables: FusedTables, stats: bool) -> int:
+    """Dynamic shared bytes of a ``trace_level`` launch: the spheres as
+    float4, the rest of the table without its materials, the shortlist
+    and, with ``stats``, the stats' scratch (csrc/trace_level.cu)."""
+    c = tables.counts
+    n_prim = c["n_s"] + c["n_w"] + c["n_b"]
+    words = tables.packed.numel() - 8 * n_prim - c["n_s"] + c["n_c"]
+    if stats:
+        words += 32 * 10 + -(-c["n_c"] // 32)
+    return 4 * words
+
+
+def level_bwd_smem_bytes(tables: FusedTables) -> int:
+    """Dynamic shared bytes of a ``trace_level_bwd`` launch: the table
+    without its materials, the light and sky sums (each lane's, for at
+    most three lights; else one row), and the 14 float32 sums of each wall
+    and box row (csrc/trace_level_bwd.cu)."""
+    c = tables.counts
+    n_ls = 6 * (c["n_pt"] + c["n_sun"]) + 10
+    n_prim = c["n_s"] + c["n_w"] + c["n_b"]
+    ls = n_ls * _BLOCK if n_ls <= 32 else n_ls  # csrc LANE_LS_MAX
+    return 4 * (tables.packed.numel() - 8 * n_prim + ls + 14 * (c["n_w"] + c["n_b"]))
+
+
 def trace_level_bwd(tables: FusedTables, attrs: torch.Tensor, ls: torch.Tensor,
                     o: V3, d: V3, w: torch.Tensor, t_k: torch.Tensor, i_k: torch.Tensor,
                     ct_acc: V3, ct_next, is_last: bool, sums: tuple):
@@ -425,11 +660,10 @@ def _trace_level_bwd_cuda(tables, attrs, ls, o, d, w, t_k, i_k, ct_acc, ct_next,
     n = w.numel()
     if n:
         lib = _build.load("trace_level_bwd", _SIGNATURES["trace_level_bwd"])
-        n_blocks = min(-(-n // _BLOCK), _BWD_BLOCKS_PER_SM * _sm_count(w.device))
         err = lib.trace_level_bwd_launch(
             *_table_args(tables), *_ptrs((*o, *d, w, t_k, i_k, *ct_acc)),
             *_ptrs(ct_next if ct_next is not None else (None,) * 7), *_ptrs(cts),
-            *_ptrs(sums), n, n_blocks, int(is_last), _stream(w.device),
+            *_ptrs(sums), n, int(is_last), _stream(w.device),
         )
         _raise_on(err, lib, "trace_level_bwd")
         trace_level_bwd.launches += 1
@@ -486,7 +720,7 @@ _SIGNATURES = {
     },
     "trace_level_bwd": {
         "trace_level_bwd_launch": (
-            _I, _TABLE_ARGTYPES + [_P] * 28 + [ctypes.c_longlong, _I, _I, _P]
+            _I, _TABLE_ARGTYPES + [_P] * 28 + [ctypes.c_longlong, _I, _P]
         ),
         "trace_level_bwd_error_string": (ctypes.c_char_p, [_I]),
     },

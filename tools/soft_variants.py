@@ -82,13 +82,13 @@ def variant_csrc(edits: dict, root: Path) -> Path:
     return out
 
 
-def start_builds(csrc: Path) -> list:
-    """Starts nvcc for each soft source of ``csrc`` not built yet, into the
-    path ``_build.load`` looks for: ``[(tmp, final path, process)]``."""
+def start_builds(csrc: Path, sources=SOURCES) -> list:
+    """Starts nvcc for each of ``sources`` in ``csrc`` not built yet, into
+    the path ``_build.load`` looks for: ``[(tmp, final path, process)]``."""
     _build.CSRC = csrc
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = []
-    for name in SOURCES:
+    for name in sources:
         out = _build._library_path(name)
         if out.exists():
             continue
@@ -162,10 +162,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("soft_variants: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True,
-    ).stdout.strip().splitlines()[0]
+    smi = cs.card_line()
     print(smi, flush=True)
     package_csrc = _build.CSRC
     scratch = Path(tempfile.mkdtemp(prefix="soft_variants_"))
