@@ -29,8 +29,9 @@ c4, grid-64 at 1920x1080, depth 1) and its training path (20
 ``make_fit_step(soft=True)`` steps from moved centres, the loss and the
 centre error falling); the closest-hit
 kernels (fold_flat, fold_shortlist, fold_shortlist_hit) against their plain
-versions on seven workloads (primary and level-1 bounce rays, an all-dead
-mask) and against each other, their times and bounds, and the sweep of
+versions on eight workloads (primary and level-1 bounce rays, an all-dead
+mask; up to grid-2048) and against each other, their times and bounds (on
+primary rays, and on each level of the grid-1024 loop), and the sweep of
 ``closest_hit_soa``'s record cut-off; the closest-hit paths: ``render_depth``
 of BASELINE c1 (320x240), of grid-1024 at 1920x1080 and of c5 (3840x2160,
 4 row chunks), the ``"pallas"`` selector's fold as a direct caller runs it
@@ -69,6 +70,27 @@ of c5, the grid-1024 fit step, and the times of the kernels that share
 trace_common.cuh (trace_whole, trace_whole_bwd, the folds); then prints
 them as one JSON line. ``--level-compare`` runs it as ``--soft-compare``
 does.
+
+    python3 chip_smoke.py --hit-only [--root DIR]
+    python3 chip_smoke.py --hit-compare PARENT_DIR [--out FILE]
+
+``--hit-only`` runs the closest-hit diagnosis on the package at DIR
+(``ptxas -v`` and blocks per SM of fold_shortlist; on the depth pass's
+primary rays of grid-1024, grid-64, sprint3 and grid-2048 at 1920x1080, c5
+3840x2160 in its 4 row chunks and c1 320x240, and on each level of the
+grid-1024 1920x1080 d3
+loop around ``closest_hit_soa``, both variants' time a launch, the lanes
+alive, the listed chunks, the chunk reach of a lane and the union of a
+warp, and the fold's work by route from the plain mirror), the frames of
+``render_depth`` (grid-1024 1080p, c5), the loop and the ``"pallas"`` fold
+pass, and the times of the kernels that share trace_common.cuh
+(trace_whole, trace_whole_bwd, ray_stats, trace_level, trace_level_bwd,
+fold_flat; trace_level also on the demo scene at 640x640 d12); then
+prints them as one JSON line, and exits non-zero if the fold kernel
+differs from its plain mirror or the record kernel's index from the
+fold's on any launch. ``--hit-compare`` runs it as ``--soft-compare``
+does. The three modes share one harness (``COMPARE_MODES``, ``only``,
+``compare``).
 """
 
 from __future__ import annotations
@@ -150,8 +172,9 @@ SOFT_TAU, SOFT_TAU_Z = 0.01, 0.05
 # scene at 320x240, a depth pass: app/config.py:80-84); then the frame of
 # the fold="pallas_flat" render path (sprint3 1080p), grid-64 at 1080p,
 # boxes (the mixed scene), ragged tiles with shortlists (grid-130 at
-# 333x111), a walls-only scene (sprint3 without its sphere), and grid-1024
-# (c5's scene) at a quarter of 1080p each way: the plain versions fold every
+# 333x111), a walls-only scene (sprint3 without its sphere), grid-1024
+# (c5's scene) and grid-2048 (64 chunks of 32 spheres, a 36 KB shared
+# table) at a quarter of 1080p each way: the plain versions fold every
 # listed chunk of every lane at once and are slow there.
 HIT_CASES = (
     ("c1_demo_320x240", ("reference_demo_scene", ()), 320, 240),
@@ -161,10 +184,12 @@ HIT_CASES = (
     ("grid130_333x111", ("grid_sphere_scene", (130,)), 333, 111),
     ("walls_only_256x128", ("walls_only", ()), 256, 128),
     ("grid1024_480x270", ("grid_sphere_scene", (1024,)), 480, 270),
+    ("grid2048_480x270", ("grid_sphere_scene", (2048,)), 480, 270),
 )
 # Where the closest-hit kernels are timed: the frames of their main paths
 # (c1's depth pass, render(fold="pallas_flat") of sprint3, render_depth and
-# the per-level loop of grid-1024) and grid-64.
+# the per-level loop of grid-1024, each level) and grid-64. There each
+# kernel's output is also held bit for bit against its plain version's.
 HIT_TIME_CASES = (
     ("c1_demo_320x240", ("reference_demo_scene", ()), 320, 240),
     ("sprint3_1920x1080", ("sprint3_scene", ()), 1920, 1080),
@@ -2264,15 +2289,17 @@ def flat_canary(device, width: int = 1920, height: int = 1080, depth: int = 3) -
     return rows
 
 
-def time_hit(spec, width: int, height: int, device, plain: bool = True) -> dict:
-    """Each closest-hit kernel's device time (``event_ms``) on one frame's
-    primary rays, its plain version's, and its bound on this run's data:
-    the bytes (each input plane and the shortlists read once, each output
-    plane written once) at 3.35 TB/s against ``fold_ops`` at 67 TFLOP/s."""
-    from raytracer_tpu_torch.ops import cuda_fold, cuda_hit
+def hit_kernel_times(tables, o, d, w, plain: bool = True, flat: bool = True) -> dict:
+    """Each closest-hit kernel's device time (``event_ms``) on one set of
+    ``[H, W]`` rays with their alive plane ``w``, its plain version's (with
+    ``plain``), and its bound on this run's data: the bytes (each input
+    plane and the shortlists read once, each output plane written once) at
+    3.35 TB/s against ``fold_ops`` at 67 TFLOP/s. Each kernel's output is
+    held against its plain version's on the same inputs: ``same`` when
+    every plane agrees bit for bit (NaN where NaN), and ``max_abs_err``.
+    ``fold_flat`` only with ``flat``."""
+    from raytracer_tpu_torch.ops import cuda_hit
 
-    tables = cuda_fold.fused_tables(make_scene(spec, device))
-    o, d, w = frame_rays(width, height, device)
     sl, listed = hit_inputs(tables, o, d, w)
     t9, i9 = cuda_hit.fold_shortlist(tables, sl, o, d, w)
     n = w.numel()
@@ -2290,16 +2317,60 @@ def time_hit(spec, width: int, height: int, device, plain: bool = True) -> dict:
                                lambda: cuda_hit.fold_shortlist_hit_reference(tables, sl, o, d, w),
                                4 * 23 * n + sl_bytes, "record"),
     }
+    if not flat:
+        del calls["fold_flat"]
     out = {}
     for name, (kern, ref, nbytes, kind) in calls.items():
         ops = fold_ops(tables, listed, idx, alive, used, kind)
+        got, want = kern(), ref()
         out[name] = dict(
+            same=all(same_planes(a, b) for a, b in zip(got, want)),
+            max_abs_err=max(max_err(a, b) for a, b in zip(got, want)),
             ms=event_ms(kern), plain_ms=event_ms(ref, iters=2, warmup=1) if plain else None,
             bound_ms=max(nbytes / PEAK_BYTES_S, ops / PEAK_F32_S) * 1e3,
             bound_by="bytes" if nbytes / PEAK_BYTES_S >= ops / PEAK_F32_S else "operations",
-            mbytes=nbytes / 1e6, gflop=ops / 1e9,
+            mbytes=nbytes / 1e6, gflop=ops / 1e9, alive=int(alive.sum()),
             listed=float(listed.mean()) if tables.counts["n_c"] else 0.0,
         )
+    return out
+
+
+def loop_hit_rays(device, width: int = 1920, height: int = 1080, depth: int = 3):
+    """The inputs of each ``closest_hit_soa`` call of ``drive_hit_loop``'s
+    per-level loop (``render_tile`` with a ``closest_hit_fn``, on
+    ``level_fit_start``'s grid-1024), one a level: the fused tables and per
+    level the ``[H, W]`` planes ``(o, d, w)`` as ``hit_closest_shortlist``
+    packs them (``cuda_hit._frame``; level 0 all alive)."""
+    from raytracer_tpu_torch.ops import cuda_fold, cuda_hit
+    from raytracer_tpu_torch.ops.trace import closest_hit_soa, render_tile
+
+    start, camera, _ = level_fit_start(device, width, height)
+    calls = []
+
+    def hit_fn(sc, o, d, active=None):
+        calls.append(cuda_hit._frame(o, d, active)[:3])
+        return closest_hit_soa(sc, o, d, active=active)
+
+    with torch.no_grad():
+        render_tile(start, camera, width, height, depth=depth, closest_hit_fn=hit_fn)
+    return cuda_fold.fused_tables(start), calls
+
+
+def time_hit(spec, width: int, height: int, device, plain: bool = True,
+             loop_depth: int | None = None) -> dict:
+    """``hit_kernel_times`` on one frame's primary rays; with
+    ``loop_depth``, under ``"loop_levels"`` also the shortlist kernels'
+    times and bounds on each level of the per-level loop around
+    ``closest_hit_soa`` at this frame size (``loop_hit_rays``: one launch a
+    level)."""
+    from raytracer_tpu_torch.ops import cuda_fold
+
+    tables = cuda_fold.fused_tables(make_scene(spec, device))
+    out = hit_kernel_times(tables, *frame_rays(width, height, device), plain)
+    if loop_depth is not None:
+        ltables, calls = loop_hit_rays(device, width, height, loop_depth)
+        out["loop_levels"] = [hit_kernel_times(ltables, *c, plain=False, flat=False)
+                              for c in calls]
     return out
 
 
@@ -2980,75 +3051,339 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def level_only() -> int:
-    """``--level-only``: the card's line, the per-level kernels' build, the
-    level diagnosis, the frames and fit step of the per-level route, and
-    the times of the kernels that share their header, then one JSON line
-    of them all. Run by ``--level-compare`` on each tree it compares."""
+# ---------------------------------------------------------------------------
+# The closest-hit diagnosis (fold_shortlist, fold_shortlist_hit) and --hit-only
+# ---------------------------------------------------------------------------
+
+# (name, scene, width, height): the primary rays of the depth pass
+# (render_depth, one closest_hit_soa call a row chunk) on grid-1024, grid-64
+# (4 chunks of 16 spheres), sprint3 (one chunk of one sphere) and grid-2048
+# at 1920x1080, on c5 (grid-1024 at 3840x2160, 4 row chunks) and on
+# BASELINE c1 (the demo scene at 320x240, identity lists).
+HIT_DIAG_FRAMES = (
+    ("grid1024_1920x1080", ("grid_sphere_scene", (1024,)), 1920, 1080),
+    ("grid64_1920x1080", ("grid_sphere_scene", (64,)), 1920, 1080),
+    ("sprint3_1920x1080", ("sprint3_scene", ()), 1920, 1080),
+    ("grid2048_1920x1080", ("grid_sphere_scene", (2048,)), 1920, 1080),
+    ("c5_grid1024_3840x2160", ("grid_sphere_scene", (1024,)), 3840, 2160),
+    ("c1_demo_320x240", ("reference_demo_scene", ()), 320, 240),
+)
+
+
+def depth_pass_rays(device, width: int, height: int) -> list:
+    """``render_depth``'s ``closest_hit_soa`` inputs: the camera rays of
+    each row chunk (``_row_chunks``) as ``[rows, W]`` planes ``(o, d, w)``,
+    all alive (``cuda_hit._frame``)."""
+    from raytracer_tpu_torch.models import scenes
+    from raytracer_tpu_torch.ops import cuda_hit
+    from raytracer_tpu_torch.ops.trace import raygen_tile
+    from raytracer_tpu_torch.render.integrator import _row_chunks
+
+    camera = scenes.reference_demo_camera(device=device)
+    rows = _row_chunks(width, height, 0)
+    out = []
+    for r0 in range(0, height, rows):
+        o, d = raygen_tile(camera, width, height, row_offset=r0, rows=min(rows, height - r0))
+        out.append(cuda_hit._frame(o, d, None)[:3])
+    return out
+
+
+def hit_smem(tables) -> int:
+    """Dynamic shared bytes of a fold_shortlist launch: the package's own
+    plan where it has one, else the parent's layout (the table without its
+    materials, then the shortlist)."""
+    from raytracer_tpu_torch.ops import cuda_hit
+
+    plan = getattr(cuda_hit, "hit_smem_bytes", None)
+    if plan is not None:
+        return plan(tables)
+    c = tables.counts
+    return 4 * (tables.packed.numel() - 8 * (c["n_s"] + c["n_w"] + c["n_b"]) + c["n_c"])
+
+
+def hit_row(tables, o, d, w, reach: bool = True) -> dict:
+    """Both shortlist kernels on one ``closest_hit_soa`` call's rays, on
+    the shortlists ``cuda_hit.shortlists`` builds: each variant's device
+    time (``event_ms``), the lanes alive and the listed chunks a tile; with
+    ``reach`` also the chunk reach of a lane and the union of a warp
+    (``level_reach``, t1 = t_ex and the fold's final t), the fold's work by
+    route from the plain mirror (the package's
+    ``fold_shortlist_pair_reference`` where it has one, else the per-level
+    ``pair_fold_reference``; the same fold) at its K and the cooperative
+    share at each K of PAIR_SWEEP, and whether the fold kernel equals the
+    mirror and the record kernel's index the fold's, bit for bit."""
+    from raytracer_tpu_torch.core.v3 import V3
+    from raytracer_tpu_torch.ops import cuda_hit, cuda_level
+
+    sl = cuda_hit.shortlists(tables, o, d, w)
+    t9, i9 = cuda_hit.fold_shortlist(tables, sl, o, d, w)
+    row = dict(lanes=w.numel(), alive=int((w > 0).sum()),
+               listed=(float(sl[1].clamp_min(0).float().mean()) if sl is not None
+                       else float(tables.counts["n_c"])),
+               fold_ms=event_ms(lambda: cuda_hit.fold_shortlist(tables, sl, o, d, w)),
+               hit_ms=event_ms(lambda: cuda_hit.fold_shortlist_hit(tables, sl, o, d, w)))
+    if not reach:
+        return row
+    if sl is not None:
+        row.update(level_reach(tables, sl, o, d, w, t9))
+    mirror = getattr(cuda_hit, "fold_shortlist_pair_reference", None)
+    k_min = cuda_level.PAIR_MIN_LANES
+    if mirror is not None:
+        (tm, im), work = mirror(tables, sl, o, d, w, k_min)
+        row["mirror_same"] = same_planes(t9, tm) and torch.equal(i9, im)
+    else:
+        zero = V3(*(torch.zeros_like(w) for _ in range(3)))
+        work = cuda_level.pair_fold_reference(tables, sl, o, d, w, zero, True, k_min)[1]
+    row["record_index_is_fold"] = torch.equal(cuda_hit.fold_shortlist_hit(tables, sl, o, d, w)[1],
+                                              i9)
+    row.update(k_min=k_min, fold_work=work,
+               lane_reach_exact=work["lane_chunks"] / max(work["used"], 1),
+               warp_union_exact=work["warp_chunks"] / max(work["warps"], 1),
+               pair_shares=pair_shares(work["pass_hist"], tables.counts["unroll"] <= 16))
+    row["warp_ratio_exact"] = row["warp_union_exact"] / max(row["lane_reach_exact"], 1e-30)
+    return row
+
+
+def hit_diagnosis(device, procs=None, reach: bool = True) -> dict:
+    """``ptxas -v`` of fold_shortlist (registers, spills) with its blocks
+    per SM at each diagnosed scene's shared bytes, then ``hit_row`` for
+    each row chunk of HIT_DIAG_FRAMES' depth passes and each level of the
+    grid-1024 1920x1080 d3 loop around ``closest_hit_soa``
+    (``loop_hit_rays``), with each workload's sums over its launches."""
+    from raytracer_tpu_torch.ops import cuda_fold
+
+    out = {"ptxas": ptxas_finish(procs or ptxas_start(("fold_shortlist",))) if reach else [],
+           "scenes": {}}
+    work = [(name, cuda_fold.fused_tables(make_scene(spec, device)),
+             depth_pass_rays(device, width, height))
+            for name, spec, width, height in HIT_DIAG_FRAMES]
+    work.append(("loop_grid1024_1920x1080_d3", *loop_hit_rays(device)))
+    for name, tables, calls in work:
+        rows = [hit_row(tables, *c, reach=reach) for c in calls]
+        out["scenes"][name] = dict(
+            n_c=tables.counts["n_c"], unroll=tables.counts["unroll"], smem=hit_smem(tables),
+            rows=rows, fold_ms=[r["fold_ms"] for r in rows], hit_ms=[r["hit_ms"] for r in rows])
+        for row in out["ptxas"]:
+            key = f"blocks_per_sm_{name}"
+            row[key] = occupancy(row, 256, hit_smem(tables))
+    return out
+
+
+def print_hit_diagnosis(diag: dict):
+    for row in diag["ptxas"]:
+        occ = {k: v for k, v in row.items() if k.startswith("blocks_per_sm")}
+        print(f"hit diagnosis ptxas {row['kernel']}: registers={row.get('registers')} "
+              f"spill_stores={row.get('spill_stores')} spill_loads={row.get('spill_loads')} "
+              f"{occ}", flush=True)
+    for name, sc in diag["scenes"].items():
+        print(f"hit diagnosis {name}: n_c={sc['n_c']} unroll={sc['unroll']} smem={sc['smem']} "
+              f"fold_shortlist_ms={[round(v, 4) for v in sc['fold_ms']]} "
+              f"(sum {sum(sc['fold_ms']):.4f}) fold_shortlist_hit_ms="
+              f"{[round(v, 4) for v in sc['hit_ms']]} (sum {sum(sc['hit_ms']):.4f})", flush=True)
+        for k, r in enumerate(sc["rows"]):
+            line = f"  launch {k}: alive={r['alive']} of {r['lanes']} listed={r['listed']:.2f}"
+            if "lane_reach_ex" in r:
+                line += (f" lane_reach t_ex/final={r['lane_reach_ex']:.3f}/{r['lane_reach_fin']:.3f}"
+                         f" warp_union={r['warp_union_ex']:.3f}/{r['warp_union_fin']:.3f}"
+                         f" alive_per_warp={r['alive_per_warp']:.2f}")
+            if "fold_work" in r:
+                wk = r["fold_work"]
+                line += (f" exact: lane_reach={r['lane_reach_exact']:.3f} "
+                         f"warp_union={r['warp_union_exact']:.3f} "
+                         f"ratio={r['warp_ratio_exact']:.3f} at K={r['k_min']}: "
+                         f"per_lane={wk['per_lane']} pair={wk['pair']} "
+                         f"pair_steps={wk['pair_steps']} pair_shares="
+                         + str({k2: round(v['pair_share'], 3)
+                                for k2, v in r['pair_shares'].items()})
+                         + f" mirror_same={r.get('mirror_same')} "
+                         f"record_index_is_fold={r['record_index_is_fold']}")
+            print(line, flush=True)
+
+
+def hit_frames(device, width: int = 1920, height: int = 1080) -> dict:
+    """The frames of the closest-hit paths, each the median of 10 calls
+    (host clock, ended by a synchronize): ``render_depth`` of grid-1024 at
+    ``width`` x ``height`` and of c5 (twice each way: 3840x2160), the
+    grid-1024 d3 loop around ``closest_hit_soa`` (``drive_hit_loop``'s
+    frame), and the ``"pallas"`` fold pass on grid-1024
+    (``drive_fold_pass``'s call)."""
+    from raytracer_tpu_torch import render_depth
+    from raytracer_tpu_torch.models import scenes
+    from raytracer_tpu_torch.ops.tonemap import reinhard_tonemap
+    from raytracer_tpu_torch.ops.trace import closest_hit_soa, raygen_tile, render_tile
+    from raytracer_tpu_torch.ops.trace import resolve_fold_fn
+
+    camera = scenes.reference_demo_camera(device=device)
+    grid = scenes.grid_sphere_scene(1024, device=device)
+    start, _, _ = level_fit_start(device, width, height)
+    o, d = raygen_tile(camera, width, height)
+    fold = resolve_fold_fn("pallas")
+
+    def hit_fn(sc, oo, dd, active=None):
+        return closest_hit_soa(sc, oo, dd, active=active)
+
+    calls = {
+        "render_depth_grid1024_1920x1080": lambda: render_depth(grid, camera, width, height,
+                                                                device=device),
+        "render_depth_c5_grid1024_3840x2160": lambda: render_depth(
+            grid, camera, 2 * width, 2 * height, device=device),
+        "loop_grid1024_1920x1080_d3": lambda: reinhard_tonemap(render_tile(
+            start, camera, width, height, depth=3, closest_hit_fn=hit_fn).stacked()),
+        "fold_pass_grid1024_1920x1080": lambda: fold(grid, o, d),
+    }
+    out = {}
+    for name, fn in calls.items():
+        with torch.no_grad():
+            fn()
+            times = [_calls_ms(fn, 1) for _ in range(10)]
+        out[name] = dict(frame_ms=statistics.median(times), frame_ms_all=times)
+    return out
+
+
+def hit_shared_times(device) -> dict:
+    """The kernels that share trace_common.cuh with the closest-hit
+    kernels, each on its main frame (``event_ms``): ``shared_kernel_times``
+    (trace_whole, trace_whole_bwd, fold_flat, and the two shortlist kernels
+    on grid-1024 primary rays), and ``ray_stats`` and the sums of a frame's
+    ``trace_level`` and ``trace_level_bwd`` launches on grid-1024 at
+    1920x1080 d3 (``level_diagnosis_scene``), and the sum of the
+    ``trace_level`` launches of the demo scene at 640x640 d12 (one chunk of
+    one sphere, identity lists; ``level_kernels_ms``)."""
+    from raytracer_tpu_torch.ops import cuda_fold
+
+    out = shared_kernel_times(device)
+    lv = level_diagnosis_scene(1024, 1920, 1080, 3, device, reach=False)
+    out.update(ray_stats_grid1024=lv["stats_ms"], trace_level_grid1024=sum(lv["fwd_ms"]),
+               trace_level_bwd_grid1024=sum(lv["bwd_ms_list"]))
+    demo = cuda_fold.fused_tables(make_scene(("reference_demo_scene", ()), device))
+    out["trace_level_demo_640x640_d12"] = level_kernels_ms(
+        demo, *frame_rays(640, 640, device), 12)["sum_ms"]
+    return out
+
+
+def hit_failed(diag: dict) -> list:
+    """The launches of a closest-hit diagnosis where the fold kernel
+    differs from its plain mirror or the record kernel's index from the
+    fold's (``hit_row``)."""
+    return [f"{name} launch {k}" for name, sc in diag["scenes"].items()
+            for k, r in enumerate(sc["rows"])
+            if r.get("mirror_same") is False or r.get("record_index_is_fold") is False]
+
+
+def soft_extras(device) -> dict:
+    return {"fits": soft_fit_steps(device)}
+
+
+def level_extras(device) -> dict:
+    return {"frames": level_frames(device), "shared": shared_kernel_times(device)}
+
+
+def hit_extras(device) -> dict:
+    return {"frames": hit_frames(device), "shared": hit_shared_times(device)}
+
+
+# --MODE-only and --MODE-compare: per mode the kernels built, those whose
+# ``ptxas -v`` the diagnosis reads, the diagnosis and its printer, the
+# launch lists of each diagnosed scene that --MODE-compare sets side by
+# side, the measurements after the diagnosis (name -> {case: value}), and
+# the check that fails the run.
+COMPARE_MODES = {
+    "soft": dict(build=("soft_level", "soft_level_bwd"), ptxas=("soft_level", "soft_level_bwd"),
+                 diagnose=soft_diagnosis, show=print_soft_diagnosis,
+                 per_launch=("fwd_ms", "bwd_ms"), extras=soft_extras,
+                 failed=lambda diag: []),
+    "level": dict(build=("ray_stats", "trace_level", "trace_level_bwd", "trace_whole",
+                         "trace_whole_bwd", "fold_flat", "fold_shortlist"),
+                  ptxas=("ray_stats", "trace_level", "trace_level_bwd"),
+                  diagnose=level_diagnosis, show=print_level_diagnosis,
+                  per_launch=("fwd_ms", "bwd_ms_list"), extras=level_extras,
+                  failed=lambda diag: []),
+    "hit": dict(build=("fold_shortlist", "ray_stats", "trace_level", "trace_level_bwd",
+                       "trace_whole", "trace_whole_bwd", "fold_flat"),
+                ptxas=("fold_shortlist",), diagnose=hit_diagnosis, show=print_hit_diagnosis,
+                per_launch=("fold_ms", "hit_ms"), extras=hit_extras, failed=hit_failed),
+}
+
+
+def _scalar(v):
+    """The number --MODE-compare sets side by side for one measurement."""
+    if isinstance(v, dict):
+        v = v.get("step_ms", v.get("frame_ms", "raises"))
+    return f"{v:.4f}" if isinstance(v, float) else v
+
+
+def only(mode: str) -> int:
+    """``--MODE-only`` (``COMPARE_MODES``): the card's line, the build of
+    the mode's kernels, its diagnosis and its measurements, then one JSON
+    line of them all. Run by ``--MODE-compare`` on each tree it compares.
+    Exits 1 if the diagnosis found a kernel at odds with its plain mirror."""
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
     import raytracer_tpu_torch
     from raytracer_tpu_torch.ops import _build
 
+    m = COMPARE_MODES[mode]
     root = str(Path(raytracer_tpu_torch.__file__).resolve().parents[1])
     smi = card_line()
     print(f"{smi} (package at {root})", flush=True)
     t0 = time.perf_counter()
-    names = ["ray_stats", "trace_level", "trace_level_bwd", "trace_whole", "trace_whole_bwd",
-             "fold_flat", "fold_shortlist"]
-    procs = ptxas_start(("ray_stats", "trace_level", "trace_level_bwd"))
-    _build.build(names)
-    print(f"build: {', '.join(names)} {time.perf_counter() - t0:.1f} s", flush=True)
-    diag = level_diagnosis("cuda", procs)
-    print_level_diagnosis(diag)
-    frames = level_frames("cuda")
-    for name, f in frames.items():
-        print(f"level route {name}: {f}", flush=True)
-    shared = shared_kernel_times("cuda")
-    print(f"shared-header kernels ms: {shared}", flush=True)
+    procs = ptxas_start(m["ptxas"])
+    _build.build(list(m["build"]))
+    print(f"build: {', '.join(m['build'])} {time.perf_counter() - t0:.1f} s", flush=True)
+    diag = m["diagnose"]("cuda", procs)
+    m["show"](diag)
+    result = {"root": root, "card": smi, "diagnosis": diag, **m["extras"]("cuda")}
+    for key in result:
+        if key not in ("root", "card", "diagnosis"):
+            for name, v in result[key].items():
+                print(f"{mode} {key} {name}: {v}", flush=True)
     for row in diag["ptxas"]:
         del row["cubin"]
-    print(json.dumps({"level_compare": {"root": root, "card": smi, "diagnosis": diag,
-                                        "frames": frames, "shared": shared}}), flush=True)
+    print(json.dumps({f"{mode}_compare": result}), flush=True)
+    failed = m["failed"](diag)
+    if failed:
+        print(f"chip_smoke: --{mode}-only: a kernel differs from its plain mirror: {failed}",
+              file=sys.stderr)
+        return 1
     return 0
 
 
-def level_compare(parent: str, out: str | None = None) -> int:
-    """``--level-compare PARENT``: ``--level-only`` on the package unpacked
-    at PARENT and on this checkout's, in turns (parent, change, change,
+def compare(mode: str, parent: str, out: str | None = None) -> int:
+    """``--MODE-compare PARENT``: ``--MODE-only`` on the package unpacked at
+    PARENT and on this checkout's, in turns (parent, change, change,
     parent) on the same card, each in its own process; prints each run and
     a summary, and writes the runs to ``out`` as JSON if given."""
     here = str(Path(__file__).resolve().parent)
+    tag = f'{{"{mode}_compare"'
     runs = []
     for root in (parent, here, here, parent):
-        cmd = [sys.executable, str(Path(__file__).resolve()), "--level-only", "--root", root]
+        cmd = [sys.executable, str(Path(__file__).resolve()), f"--{mode}-only", "--root", root]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         lines = proc.stdout.splitlines()
         for line in lines:
-            if not line.startswith('{"level_compare"'):
+            if not line.startswith(tag):
                 print(f"[{'parent' if root == parent else 'change'}] {line}", flush=True)
         if proc.returncode:
             print(proc.stderr[-6000:], file=sys.stderr)
             return proc.returncode
-        runs.append(json.loads(next(x for x in lines if x.startswith('{"level_compare"'))))
+        runs.append(json.loads(next(x for x in lines if x.startswith(tag))))
     if out:
         Path(out).write_text(json.dumps(runs))
     names = ("parent", "change", "change", "parent")
-    rc = [r["level_compare"] for r in runs]
+    rc = [r[f"{mode}_compare"] for r in runs]
     for scene in rc[0]["diagnosis"]["scenes"]:
-        for key in ("fwd_ms", "bwd_ms_list"):
-            print(f"level compare {scene} {key} per level: "
+        for key in COMPARE_MODES[mode]["per_launch"]:
+            print(f"{mode} compare {scene} {key} per launch: "
                   + " ".join(f"{names[i]}={[round(v, 4) for v in rc[i]['diagnosis']['scenes'][scene][key]]}"
                              for i in range(4)), flush=True)
-    for name in rc[0]["frames"]:
-        key = "step_ms" if "step_ms" in rc[0]["frames"][name] else "frame_ms"
-        print(f"level compare {name} {key}: "
-              + " ".join(f"{names[i]}={rc[i]['frames'][name][key]:.4f}" for i in range(4)),
-              flush=True)
-    for name in rc[0]["shared"]:
-        print(f"level compare {name} ms: "
-              + " ".join(f"{names[i]}={rc[i]['shared'][name]:.4f}" for i in range(4)), flush=True)
+    for key in rc[0]:
+        if key in ("root", "card", "diagnosis"):
+            continue
+        for name in rc[0][key]:
+            print(f"{mode} compare {key} {name}: "
+                  + " ".join(f"{names[i]}={_scalar(rc[i][key][name])}" for i in range(4)),
+                  flush=True)
     return 0
 
 
@@ -3323,14 +3658,24 @@ def main() -> int:
               f"alive={row['alive']} non_unit_directions={row['non_unit']} "
               f"differing_lanes={row['differ']} (at unit directions {row['differ_unit']})",
               flush=True)
-    hit_times = {}
+    hit_times, hit_loop = {}, []
     for name, spec, width, height in HIT_TIME_CASES:
-        hit_times[name] = time_hit(spec, width, height, "cuda")
+        hit_times[name] = time_hit(spec, width, height, "cuda",
+                                   loop_depth=3 if name == "grid1024_1920x1080" else None)
+        hit_loop = hit_times[name].pop("loop_levels", hit_loop)
+        ok &= all(v["same"] for v in hit_times[name].values())
         print(f"closest-hit times {name} (ms per launch, CUDA events; primary rays): "
               + " ".join(f"{k} {v['ms']:.4f} (bound {v['bound_ms']:.4f} {v['bound_by']}: "
                          f"{v['mbytes']:.1f} MB, {v['gflop']:.3g} GFLOP, listed chunks "
-                         f"{v['listed']:.2f}; plain {v['plain_ms']:.2f})"
+                         f"{v['listed']:.2f}; plain {v['plain_ms']:.2f}, bit for bit {v['same']})"
                          for k, v in hit_times[name].items()), flush=True)
+    for k, lv in enumerate(hit_loop):
+        ok &= all(v["same"] for v in lv.values())
+        print(f"closest-hit times grid1024_1920x1080 loop level {k} (ms per launch, CUDA events): "
+              + " ".join(f"{n} {v['ms']:.4f} (bound {v['bound_ms']:.4f} {v['bound_by']}, alive "
+                         f"{v['alive']}, listed chunks {v['listed']:.2f}, bit for bit with the "
+                         f"plain version {v['same']})" for n, v in lv.items()),
+              flush=True)
     for row in cutoff_sweep("cuda"):
         print(f"cut-off sweep 1920x1080 primary rays, {row['n_prim']} primitives: "
               f"fold_shortlist_hit call {row['record_ms']:.4f} ms, fold_shortlist + hit_record "
@@ -3509,19 +3854,24 @@ def main() -> int:
             ("fold_shortlist", "fold_shortlist.cu", 1000, t_sl, "c1_demo_320x240"),
             ("fold_shortlist_hit", "fold_shortlist.cu", 1370, t_rec, "grid1024_1920x1080")):
         by_path = {k: v[name] for k, v in hit_paths.items() if v[name]}
+        timed = [v[name] for v in hit_times.values()] + [lv[name] for lv in hit_loop
+                                                         if name in lv]
         kernels.append({
             "name": name, "route": "cuda", "source": f"raytracer_tpu_torch/csrc/{source}",
             "replaces": f"raytracer_tpu/ops/pallas_fold.py:{line}",
             "launches": sum(by_path.values()), "launches_by_path": by_path,
-            "max_abs_err": max(r[{"fold_flat": "flat_err", "fold_shortlist": "shortlist_err",
-                                  "fold_shortlist_hit": "record_err"}[name]]
-                               for r in hit_results),
+            "max_abs_err": max([r[{"fold_flat": "flat_err", "fold_shortlist": "shortlist_err",
+                                   "fold_shortlist_hit": "record_err"}[name]]
+                                for r in hit_results] + [v["max_abs_err"] for v in timed]),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "timed_on": where,
             "ms_by_frame": {k: v[name]["ms"] for k, v in hit_times.items()},
             "bound_ms_by_frame": {k: v[name]["bound_ms"] for k, v in hit_times.items()},
+            **({"ms_loop_grid1024_by_level": [lv[name]["ms"] for lv in hit_loop],
+                "bound_ms_loop_grid1024_by_level": [lv[name]["bound_ms"] for lv in hit_loop]}
+               if name != "fold_flat" else {}),
             "library_ms": None,
-            "check": all(r["ok"] for r in hit_results),
+            "check": all(r["ok"] for r in hit_results) and all(v["same"] for v in timed),
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     if not ok:
@@ -3534,82 +3884,14 @@ def main() -> int:
     return 0
 
 
-def soft_only() -> int:
-    """``--soft-only``: the card's line, the soft kernels' build, the soft
-    diagnosis and the soft fit steps of SOFT_FIT_SIZES, then one JSON line
-    of them all. Run by ``--soft-compare`` on each tree it compares."""
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
-        return 1
-    import raytracer_tpu_torch
-    from raytracer_tpu_torch.ops import _build
-
-    root = str(Path(raytracer_tpu_torch.__file__).resolve().parents[1])
-    smi = card_line()
-    print(f"{smi} (package at {root})", flush=True)
-    t0 = time.perf_counter()
-    _build.build(["soft_level", "soft_level_bwd"])
-    print(f"build: soft_level, soft_level_bwd {time.perf_counter() - t0:.1f} s", flush=True)
-    diag = soft_diagnosis("cuda")
-    print_soft_diagnosis(diag)
-    fits = soft_fit_steps("cuda")
-    for n, f in fits.items():
-        print(f"soft fit step grid{n} 1920x1080 d1: {f}", flush=True)
-    for row in diag["ptxas"]:
-        del row["cubin"]
-    print(json.dumps({"soft_compare": {"root": root, "card": smi, "diagnosis": diag,
-                                       "fits": fits}}), flush=True)
-    return 0
-
-
-def soft_compare(parent: str, out: str | None = None) -> int:
-    """``--soft-compare PARENT``: ``--soft-only`` on the package unpacked at
-    PARENT and on this checkout's, in turns (parent, change, change,
-    parent) on the same card, each in its own process; prints each run and
-    a summary of the per-level kernel times and the fit steps, and writes
-    the runs to ``out`` as JSON if given."""
-    here = str(Path(__file__).resolve().parent)
-    runs = []
-    for root in (parent, here, here, parent):
-        cmd = [sys.executable, str(Path(__file__).resolve()), "--soft-only", "--root", root]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        lines = proc.stdout.splitlines()
-        for line in lines:
-            if not line.startswith('{"soft_compare"'):
-                print(f"[{'parent' if root == parent else 'change'}] {line}", flush=True)
-        if proc.returncode:
-            print(proc.stderr[-6000:], file=sys.stderr)
-            return proc.returncode
-        runs.append(json.loads(next(x for x in lines if x.startswith('{"soft_compare"'))))
-    if out:
-        Path(out).write_text(json.dumps(runs))
-    names = ("parent", "change", "change", "parent")
-    for scene in runs[0]["soft_compare"]["diagnosis"]["scenes"]:
-        for key in ("fwd_ms", "bwd_ms"):
-            vals = {i: runs[i]["soft_compare"]["diagnosis"]["scenes"][scene][key]
-                    for i in range(4)}
-            print(f"soft compare {scene} 1920x1080 {key} per level: "
-                  + " ".join(f"{names[i]}={[round(v, 4) for v in vals[i]]}" for i in range(4)),
-                  flush=True)
-    for n in runs[0]["soft_compare"]["fits"]:
-        print(f"soft compare fit step grid{n} 1920x1080 d1 ms: "
-              + " ".join(f"{names[i]}={runs[i]['soft_compare']['fits'][n].get('step_ms', 'raises')}"
-                         for i in range(4)), flush=True)
-    return 0
-
-
 if __name__ == "__main__":
     argv = sys.argv[1:]
     if "--root" in argv:
         sys.path.insert(0, argv[argv.index("--root") + 1])
-    if "--level-compare" in argv:
-        sys.exit(level_compare(argv[argv.index("--level-compare") + 1],
-                               argv[argv.index("--out") + 1] if "--out" in argv else None))
-    if "--level-only" in argv:
-        sys.exit(level_only())
-    if "--soft-compare" in argv:
-        sys.exit(soft_compare(argv[argv.index("--soft-compare") + 1],
-                              argv[argv.index("--out") + 1] if "--out" in argv else None))
-    if "--soft-only" in argv:
-        sys.exit(soft_only())
+    for mode in COMPARE_MODES:
+        if f"--{mode}-compare" in argv:
+            sys.exit(compare(mode, argv[argv.index(f"--{mode}-compare") + 1],
+                             argv[argv.index("--out") + 1] if "--out" in argv else None))
+        if f"--{mode}-only" in argv:
+            sys.exit(only(mode))
     sys.exit(main())

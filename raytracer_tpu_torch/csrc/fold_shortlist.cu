@@ -13,34 +13,50 @@
 //   writes 16 planes: t (recomputed), index, hit point, normal, colour,
 //   ambient, metallic, diffuse, specular, exponent.
 //
-// Design: trace_level.cu's fold without the shading. A block of 256 threads
-// runs one tile of tr x tc pixels (tr * tc = 256) at a time, one thread per
-// ray, and walks the tiles with a grid stride; the grid is as many blocks as
-// fit on the card at once (trace_common.cuh's `persistent_grid`). The table
-// without its materials is copied into shared memory once per block (22 KB
-// for 1024 spheres; past 48 KB the launch opts in to more), and the tile's
-// shortlist (phase A's order and count, or every chunk in index order) once
-// per tile. A lane whose alive plane `w` is 0 folds nothing and writes a
-// miss; every other lane folds the walls and boxes, then each listed chunk
-// behind its own gate against its segment [t0, min(t_ex, best t)]. The fold
-// breaks ties on the global index, so its result does not depend on the
-// order of the list. With RECORD the lane regathers its winner by index (the
-// geometry from shared memory, the materials from device memory, one row
-// per lane), where the TPU kernel swept every shortlisted chunk with masked
-// selects, and runs trace_common.cuh's `winner_record` (the record part of
-// the level math that trace_whole.cu and trace_level.cu run). A miss (or a
-// dead lane) writes (MISS_T, -1), the point o + d, the normal (0, 0, 1) and
-// zero materials, as the plain version does.
+// Design: trace_level.cu's fold without the shading: both kernels run
+// trace_common.cuh's `tile_fold`. A block of 256 threads runs one tile of
+// tr x tc pixels (tr * tc = 256) at a time, one thread per ray, and walks the
+// tiles with a grid stride; the grid is as many blocks as fit on the card at
+// once (`persistent_grid`). Each block copies the table without its
+// materials into shared memory once (`tab_level_shared`): the spheres as one
+// float4 each (centre, |c|^2 - r^2), one broadcast load a sphere test where
+// four columns took four, and the walls, boxes, chunk tables, slab, lights
+// and sky as they are (18 KB for 1024 spheres, 36 KB for 2048; past 48 KB
+// the launch opts in to more). The tile's shortlist (phase A's order and
+// count, or every chunk in index order) is copied once per tile. Every lane
+// of the tile enters the fold, the ragged edge's too, since the warp's
+// ballots and shuffles take all 32 lanes; a lane outside the frame or whose
+// alive plane `w` is 0 folds nothing. Each alive lane folds the walls and
+// boxes, then the warp walks the list (`fold_list`): each lane that meets
+// the slab gates each listed chunk against its own segment [t0, min(t_ex,
+// best t)]; where at least K_PAIR (8) lanes of the warp pass, each folds the
+// chunk's spheres alone, and where fewer pass (bounce rays scatter, dead
+// lanes leave warps half empty) the warp folds the chunk for them one ray
+// at a time, lane j testing sphere j, a warp arg-min merging the chunk's
+// nearest hit into the lane's best (not for chunks of one sphere, as c1's:
+// PAIR_MIN_UNROLL). A sphere the ray misses skips sqrtf,
+// whose negative operands take its slow path (`sphere_ahead`, the same
+// bits). The fold breaks ties on the global index, so its result depends
+// neither on the order of the list nor on who tests which sphere. With
+// RECORD the lane regathers its winner by index (its sphere columns and
+// materials from device memory, one row per lane), where the TPU kernel
+// swept every shortlisted chunk with masked selects, and runs
+// `winner_record` (the record part of the level math that trace_whole.cu
+// and trace_level.cu run). A miss (or a dead lane) writes (MISS_T, -1), the
+// point o + d, the normal (0, 0, 1) and zero materials, as the plain
+// version does.
 //
 // Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s float32): the fold reads 7
 // planes and writes 2 (9 planes, 75 MB at 1920x1080, 22 us); the record
 // variant writes 16 (23 planes, 191 MB, 57 us). The arithmetic is ~40
 // float32 operations for the walls and the slab, ~25 per listed chunk's
 // gate and ~22 per sphere of each chunk the gate lets through, and ~40 for
-// the record: chip_smoke.py counts it on each run's data. On grid-1024 a
-// lane tests a few chunks of 32, so operations bound it there, bytes on
-// scenes of a few primitives. The design spends the operations only where
-// a lane's gate passes and keeps every intermediate in registers.
+// the record: chip_smoke.py counts it on each run's data (`fold_ops`). On
+// grid-1024 a lane's gate passes a few chunks of 32 spheres: the sphere
+// tests, built without FMA contraction, are the work, and the design spends
+// them only where a lane's gate passes, keeps a warp from testing a chunk 32
+// lanes wide for a few lanes, and keeps every intermediate in registers. On
+// scenes of a few primitives bytes bound it.
 //
 // Build with -fmad=false and without fast math (ops/_build.py): every output
 // is then bit-identical to the plain PyTorch version's.
@@ -56,7 +72,7 @@ constexpr int N_REC = 14;  // record planes after (t, index)
 
 // The planes of one call, each [H, W]; `rec` is used only with RECORD.
 struct FoldPlanes {
-  const float *ox, *oy, *oz, *dx, *dy, *dz, *w;
+  RayPlanes in;  // rays and the alive plane
   float* t;
   int* i;
   float* rec[N_REC];  // hit point xyz, normal xyz, colour rgb, amb, met, dif, spe, exp
@@ -67,52 +83,29 @@ __global__ void __launch_bounds__(BLOCK) fold_shortlist_kernel(
     Layout L, const float* __restrict__ g_tab, const int* __restrict__ chunk_list,
     const int* __restrict__ counts, FoldPlanes p, int H, int W, int tr, int tc, int tiles_w,
     int n_tiles) {
-  extern __shared__ float sm[];
-  int* s_list = reinterpret_cast<int*>(sm + fold_floats(L));
-  const Tab T = tab_fold_shared(L, g_tab, sm);  // ends with __syncthreads
+  extern __shared__ float4 sm4[];
+  int* s_list = reinterpret_cast<int*>(reinterpret_cast<float*>(sm4) + level_table_floats(L));
+  const float4* sph;
+  const Tab T = tab_level_shared(L, g_tab, sm4, &sph);  // ends with __syncthreads
 
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    int n_list = L.n_c;  // an identity list without chunk_list
-    if (chunk_list) {
-      n_list = max(counts[tile], 0);
-      for (int j = threadIdx.x; j < n_list; j += blockDim.x)
-        s_list[j] = chunk_list[(long long)tile * L.n_c + j];
-    } else {
-      for (int j = threadIdx.x; j < n_list; j += blockDim.x) s_list[j] = j;
-    }
-    __syncthreads();
-
-    const int y = (tile / tiles_w) * tr + threadIdx.x / tc;
-    const int x = (tile % tiles_w) * tc + threadIdx.x % tc;
-    if (y < H && x < W) {
-      const long long r = (long long)y * W + x;
-      const Ray ray{p.ox[r], p.oy[r], p.oz[r], p.dx[r], p.dy[r], p.dz[r]};
-      const RayTerms q = ray_terms(ray);
-      float bt = MISS_T;
-      int bi = -1;
-      if (p.w[r] > 0.0f) {
-        fold_walls_boxes(T, ray, q, bt, bi);
-        float t0, t_ex;
-        if (T.n_c && slab_segment(T, ray, q, t0, t_ex)) {
-          for (int k = 0; k < n_list; ++k) {
-            const int c = s_list[k];
-            if (!chunk_gate(T, c, ray, q, t0, fminf(t_ex, bt))) continue;
-            fold_chunk(T, c, ray, q, bt, bi);
-          }
-        }
-      }
-      p.i[r] = bi;
+    const TileLane l = tile_fold(T, sph, chunk_list, counts, s_list, p.in, tile, H, W, tr, tc,
+                                 tiles_w);
+    if (l.valid) {
+      const long long r = lane_offset(tile, W, tr, tc, tiles_w);
+      const Ray& ray = l.ray;
+      p.i[r] = l.bi;
       if (!RECORD) {
-        p.t[r] = bt;
-      } else if (bi >= 0) {
-        const HitRec h = winner_record(T, bt, bi, ray, q);
+        p.t[r] = l.bt;
+      } else if (l.bi >= 0) {
+        const HitRec h = winner_record(T, l.bt, l.bi, ray, l.q);
         p.t[r] = h.tt;
         p.rec[0][r] = h.hpx; p.rec[1][r] = h.hpy; p.rec[2][r] = h.hpz;
         p.rec[3][r] = h.hnx; p.rec[4][r] = h.hny; p.rec[5][r] = h.hnz;
 #pragma unroll
-        for (int c = 0; c < 8; ++c) p.rec[6 + c][r] = T.mc(c, bi);
+        for (int c = 0; c < 8; ++c) p.rec[6 + c][r] = T.mc(c, l.bi);
       } else {
-        p.t[r] = bt;
+        p.t[r] = l.bt;
         p.rec[0][r] = ray.ox + ray.dx * 1.0f;
         p.rec[1][r] = ray.oy + ray.dy * 1.0f;
         p.rec[2][r] = ray.oz + ray.dz * 1.0f;
@@ -145,7 +138,7 @@ int fold_shortlist_launch(const float* tab, int n_tab, int n_s, int unroll, int 
                           float* rec10, float* rec11, float* rec12, float* rec13, int H,
                           int W, int tr, int tc, void* stream) {
   rt::Layout L = rt::make_layout(n_s, unroll, n_w, n_b, n_pt, n_sun, gate, 0);
-  FoldPlanes p{ox, oy, oz, dx, dy, dz, w, t, i,
+  FoldPlanes p{{ox, oy, oz, dx, dy, dz, w}, t, i,
                {rec0, rec1, rec2, rec3, rec4, rec5, rec6, rec7, rec8, rec9, rec10, rec11,
                 rec12, rec13}};
   bool rec_ok = true;
@@ -154,7 +147,7 @@ int fold_shortlist_launch(const float* tab, int n_tab, int n_s, int unroll, int 
       (!chunk_list) != (!counts) || !rec_ok)
     return (int)cudaErrorInvalidValue;
   const int tiles_w = (W + tc - 1) / tc, n_tiles = tiles_w * ((H + tr - 1) / tr);
-  const size_t smem = (size_t)(rt::fold_floats(L) + L.n_c) * sizeof(float);
+  const size_t smem = (size_t)(rt::level_table_floats(L) + L.n_c) * sizeof(float);
   cudaStream_t s = (cudaStream_t)stream;
   int n_blocks = 0;
   cudaError_t err = rec0

@@ -4,7 +4,8 @@
 // the per-level chain, and the adjoint of one level.
 //
 // Included by trace_whole.cu, trace_whole_bwd.cu, ray_stats.cu,
-// trace_level.cu, trace_level_bwd.cu, fold_flat.cu and fold_shortlist.cu;
+// trace_level.cu, trace_level_bwd.cu, fold_flat.cu and fold_shortlist.cu
+// (trace_level.cu and fold_shortlist.cu share a tile's fold, `tile_fold`);
 // ops/_build.py keys each library on its .cu and the headers it includes. Every function follows the plain
 // PyTorch version in raytracer_tpu_torch/ops/cuda_fold.py op for op: build
 // with -fmad=false and without fast math, so each product and sum rounds once
@@ -101,17 +102,18 @@ __device__ __forceinline__ Tab tab_fold_shared(const Layout& L, const float* g_t
   return T;
 }
 
-// Floats of trace_level's shared table: the spheres as float4 (centre xyz,
-// |c|^2 - r^2), then the table without its spheres and materials.
+// Floats of the shared table of trace_level and fold_shortlist: the spheres
+// as float4 (centre xyz, |c|^2 - r^2), then the table without its spheres
+// and materials.
 __host__ __device__ inline int level_table_floats(const Layout& L) {
   return 4 * L.n_s + (L.mat - L.wall) + (L.n_tab - L.chunk);
 }
 
-// Copies trace_level's shared table (level_table_floats(L) floats) into
-// `sm4` and sets `*sph` to its spheres, one float4 each, which the fold
-// reads in one broadcast load a sphere; the view reads the spheres' columns
-// (the winner's record, one winner per lane) and the materials from
-// `g_tab`. Ends with a __syncthreads.
+// Copies the shared table of trace_level and fold_shortlist
+// (level_table_floats(L) floats) into `sm4` and sets `*sph` to its spheres,
+// one float4 each, which the fold reads in one broadcast load a sphere; the
+// view reads the spheres' columns (the winner's record, one winner per lane)
+// and the materials from `g_tab`. Ends with a __syncthreads.
 __device__ __forceinline__ Tab tab_level_shared(const Layout& L, const float* g_tab, float4* sm4,
                                                 const float4** sph) {
   for (int j = threadIdx.x; j < L.n_s; j += blockDim.x) {
@@ -276,9 +278,9 @@ __device__ __forceinline__ void fold_chunk(const Tab& T, int c, const Ray& r, co
 }
 
 // ---------------------------------------------------------------------------
-// The warp-cooperative fold of a shortlist (trace_level.cu). Every lane of
-// the warp calls fold_chunk_shared and fold_list, in warp-uniform control
-// flow.
+// The warp-cooperative fold of a shortlist (trace_level.cu and
+// fold_shortlist.cu, through tile_fold). Every lane of the warp calls
+// fold_chunk_shared and fold_list, in warp-uniform control flow.
 // ---------------------------------------------------------------------------
 
 // Whether sphere_t of this sphere is > 0, and then its value in tt, the
@@ -370,14 +372,23 @@ __device__ __forceinline__ void fold_chunk_shared(const Tab& T, const float4* sp
   }
 }
 
+// A listed chunk whose gate fewer lanes of a warp pass is folded by the
+// whole warp (cuda_level.PAIR_MIN_LANES; chosen by measurement for
+// trace_level and fold_shortlist alike, PERF.md).
+constexpr int K_PAIR = 8;
+// Chunks of fewer spheres than this are folded lane by lane whatever their
+// warp's count: a lane tests them sooner than the warp shares one ray
+// (cuda_level.PAIR_MIN_UNROLL; chosen by measurement, PERF.md).
+constexpr int PAIR_MIN_UNROLL = 2;
+
 // The shortlist `list` (n_list chunks, in order) into each lane's (bt, bi),
 // the spheres read from `sph` (tab_level_shared):
 // at each chunk the lanes of `seg` (alive, meeting the slab) gate it
-// against [t0, min(t_ex, bt)]; where at least K_PAIR lanes pass, each folds
-// it alone (fold_chunk_hit), else the warp folds it for them
-// (fold_chunk_shared). Either way a lane's best is the lexicographic
-// minimum over the chunks its gate passed, in list order.
-template <int K_PAIR>
+// against [t0, min(t_ex, bt)]; where at least K_PAIR lanes pass, or the
+// chunks hold fewer than PAIR_MIN_UNROLL spheres, each folds it alone
+// (fold_chunk_hit), else the warp folds it for them (fold_chunk_shared).
+// Either way a lane's best is the lexicographic minimum over the chunks its
+// gate passed, in list order.
 __device__ __forceinline__ void fold_list(const Tab& T, const float4* sph, const int* list,
                                           int n_list, bool seg, const Ray& r, const RayTerms& q,
                                           float t0, float t_ex, float& bt, int& bi) {
@@ -386,12 +397,84 @@ __device__ __forceinline__ void fold_list(const Tab& T, const float4* sph, const
     const bool g = seg && chunk_gate(T, c, r, q, t0, fminf(t_ex, bt));
     const unsigned m = __ballot_sync(FULL, g);
     if (!m) continue;
-    if (__popc(m) >= K_PAIR) {
+    if (__popc(m) >= K_PAIR || T.unroll < PAIR_MIN_UNROLL) {
       if (g) fold_chunk_hit(T, sph, c, r, q, bt, bi);
     } else {
       fold_chunk_shared(T, sph, c, m, r, q, bt, bi);
     }
   }
+}
+
+// The ray planes of one call, each [H, W]: origin, direction and the alive
+// plane (the throughput; a lane with w <= 0 is dead).
+struct RayPlanes {
+  const float *ox, *oy, *oz, *dx, *dy, *dz, *w;
+};
+
+// The offset in the [H, W] planes of this thread's pixel of tile `tile` of
+// tr x tc pixels, tiles_w tiles a row. A kernel computes it for its own
+// stores: carried out of tile_fold in TileLane it cost trace_level 2%
+// (PERF.md).
+__device__ __forceinline__ long long lane_offset(int tile, int W, int tr, int tc, int tiles_w) {
+  return (long long)((tile / tiles_w) * tr + threadIdx.x / tc) * W +
+         ((tile % tiles_w) * tc + threadIdx.x % tc);
+}
+
+// One lane of a tile after its fold (tile_fold).
+struct TileLane {
+  bool valid, alive;  // the pixel lies in the frame; and w > 0
+  Ray ray;            // (0, 0, 0) -> +z outside the frame
+  RayTerms q;
+  float w;            // 0 outside the frame
+  float bt;           // the closest hit, (MISS_T, -1) on a miss or a dead lane
+  int bi;
+};
+
+// The closest-hit fold of tile `tile` of tr x tc pixels (tr * tc =
+// blockDim.x; tiles in row-major order, tiles_w of them a row): the tile's
+// shortlist into `s_list` (chunk_list's row and its count, or every chunk in
+// index order when chunk_list is null), each lane's ray, the walls and boxes
+// of each alive lane, its segment in the slab, and fold_list over
+// the list. A pixel outside the frame is a dead lane that still walks the
+// list with its warp: fold_list's ballots and shuffles take all 32 lanes.
+// Every thread of the block calls it (it holds a __syncthreads); the caller
+// syncs again before the next tile's list overwrites this one.
+__device__ __forceinline__ TileLane tile_fold(const Tab& T, const float4* sph,
+                                              const int* __restrict__ chunk_list,
+                                              const int* __restrict__ counts, int* s_list,
+                                              const RayPlanes& p, int tile, int H, int W,
+                                              int tr, int tc, int tiles_w) {
+  int n_list = T.n_c;  // an identity list without chunk_list
+  if (chunk_list) {
+    n_list = max(counts[tile], 0);
+    for (int j = threadIdx.x; j < n_list; j += blockDim.x)
+      s_list[j] = chunk_list[(long long)tile * T.n_c + j];
+  } else {
+    for (int j = threadIdx.x; j < n_list; j += blockDim.x) s_list[j] = j;
+  }
+  __syncthreads();
+
+  TileLane l;
+  const int y = (tile / tiles_w) * tr + threadIdx.x / tc;
+  const int x = (tile % tiles_w) * tc + threadIdx.x % tc;
+  const long long r = (long long)y * W + x;
+  l.valid = y < H && x < W;
+  l.ray = Ray{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 1.0f};
+  l.w = 0.0f;
+  if (l.valid) {
+    l.ray = Ray{p.ox[r], p.oy[r], p.oz[r], p.dx[r], p.dy[r], p.dz[r]};
+    l.w = p.w[r];
+  }
+  l.alive = l.valid && l.w > 0.0f;
+  l.q = ray_terms(l.ray);
+  l.bt = MISS_T;
+  l.bi = -1;
+  if (l.alive) fold_walls_boxes(T, l.ray, l.q, l.bt, l.bi);
+  float t0 = 0.0f, t_ex = 0.0f;
+  const bool seg = l.alive && T.n_c && slab_segment(T, l.ray, l.q, t0, t_ex);
+  if (__any_sync(FULL, seg))
+    fold_list(T, sph, s_list, n_list, seg, l.ray, l.q, t0, t_ex, l.bt, l.bi);
+  return l;
 }
 
 // Diffuse and specular lobes of one unit light direction, weighted by the

@@ -24,12 +24,13 @@
 // L1. The tile's shortlist (phase A's chunk order and count, or every chunk
 // in index order for an identity list) is copied into shared memory. Each
 // lane folds walls and boxes, then the warp walks the list
-// (trace_common.cuh's `fold_list`): at each chunk every lane whose ray meets
-// the slab gates it against its segment [t0, min(t_ex, best t)], as in
-// trace_whole.cu, and a ballot counts the lanes that pass. Where at least K_PAIR pass, each of them folds the
-// chunk's spheres alone; where fewer pass (bounce rays of a 16x16 tile
-// scatter, and dead lanes leave warps half empty), the warp folds the chunk
-// for them one ray at a time, lane j testing sphere j, and a warp arg-min
+// (trace_common.cuh's `tile_fold` and `fold_list`, which fold_shortlist.cu
+// runs too): at each chunk every lane whose ray meets the slab gates it
+// against its segment [t0, min(t_ex, best t)], as in trace_whole.cu, and a
+// ballot counts the lanes that pass. Where at least K_PAIR (8) pass, each of
+// them folds the chunk's spheres alone; where fewer pass (bounce rays of a
+// 16x16 tile scatter, and dead lanes leave warps half empty), the warp folds
+// the chunk for them one ray at a time, lane j testing sphere j, and a warp arg-min
 // merges the chunk's nearest hit into the lane's best. The fold breaks ties
 // on the global index, so its result depends neither on the order of the
 // list nor on who tests which sphere. A sphere a ray misses skips sqrtf's
@@ -66,13 +67,10 @@ namespace {
 using namespace rt;
 
 constexpr int BLOCK = 256;
-// A listed chunk whose gate fewer lanes of a warp pass is folded by the
-// whole warp (cuda_level.PAIR_MIN_LANES; chosen by measurement, PERF.md).
-constexpr int K_PAIR = 12;
 
 // The planes of one level, each [H, W]; `nxt` may be null (the last level).
 struct LevelPlanes {
-  const float *ox, *oy, *oz, *dx, *dy, *dz, *w;
+  RayPlanes in;  // rays and throughput
   float *ar, *ag, *ab;  // accumulator, updated in place
   float *t;
   int *i;
@@ -92,40 +90,16 @@ __global__ void __launch_bounds__(BLOCK) trace_level_kernel(
   const Tab T = tab_level_shared(L, g_tab, sm4, &sph);  // ends with __syncthreads
 
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    int n_list = L.n_c;  // an identity list without chunk_list
-    if (chunk_list) {
-      n_list = max(counts[tile], 0);
-      for (int j = threadIdx.x; j < n_list; j += blockDim.x)
-        s_list[j] = chunk_list[(long long)tile * L.n_c + j];
-    } else {
-      for (int j = threadIdx.x; j < n_list; j += blockDim.x) s_list[j] = j;
-    }
-    __syncthreads();
-
-    const int y = (tile / tiles_w) * tr + threadIdx.x / tc;
-    const int x = (tile % tiles_w) * tc + threadIdx.x % tc;
-    const bool valid = y < H && x < W;
-    const long long r = (long long)y * W + x;
-    Ray ray{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 1.0f};
-    float w = 0.0f;
-    if (valid) {
-      ray = Ray{p.ox[r], p.oy[r], p.oz[r], p.dx[r], p.dy[r], p.dz[r]};
-      w = p.w[r];
-    }
-    const bool alive = valid && w > 0.0f;
-    const RayTerms q = ray_terms(ray);
-    float bt = MISS_T;
-    int bi = -1;
-    if (alive) fold_walls_boxes(T, ray, q, bt, bi);
-    float t0 = 0.0f, t_ex = 0.0f;
-    const bool seg = alive && T.n_c && slab_segment(T, ray, q, t0, t_ex);
-    if (__any_sync(FULL, seg))
-      fold_list<K_PAIR>(T, sph, s_list, n_list, seg, ray, q, t0, t_ex, bt, bi);
-    if (valid) {
-      if (alive) {
+    const TileLane l = tile_fold(T, sph, chunk_list, counts, s_list, p.in, tile, H, W, tr, tc,
+                                 tiles_w);
+    const long long r = lane_offset(tile, W, tr, tc, tiles_w);
+    Ray ray = l.ray;
+    float w = l.w;
+    if (l.valid) {
+      if (l.alive) {
         float accr = p.ar[r], accg = p.ag[r], accb = p.ab[r];
-        p.t[r] = shade_bounce(T, bt, bi, is_last, q, ray, w, accr, accg, accb);
-        p.i[r] = bi;
+        p.t[r] = shade_bounce(T, l.bt, l.bi, is_last, l.q, ray, w, accr, accg, accb);
+        p.i[r] = l.bi;
         p.ar[r] = accr; p.ag[r] = accg; p.ab[r] = accb;
       } else {
         p.t[r] = MISS_T;
@@ -137,7 +111,7 @@ __global__ void __launch_bounds__(BLOCK) trace_level_kernel(
         p.nw[r] = w;
       }
     }
-    if (STATS) tile_stats(T, valid, ray, w, scratch, stats + (long long)tile * (NSTAT + L.n_c));
+    if (STATS) tile_stats(T, l.valid, ray, w, scratch, stats + (long long)tile * (NSTAT + L.n_c));
     __syncthreads();  // the list and the scratch are free for the next tile
   }
 }
@@ -166,7 +140,7 @@ int trace_level_launch(const float* tab, int n_tab, int n_s, int unroll, int n_w
       (!chunk_list) != (!counts) || (stats && (!nox || L.n_c == 0)))
     return (int)cudaErrorInvalidValue;
   const int tiles_w = (W + tc - 1) / tc, n_tiles = tiles_w * ((H + tr - 1) / tr);
-  LevelPlanes p{ox, oy, oz, dx, dy, dz, w, ar, ag, ab, t, i,
+  LevelPlanes p{{ox, oy, oz, dx, dy, dz, w}, ar, ag, ab, t, i,
                 nox, noy, noz, ndx, ndy, ndz, nw};
   const size_t smem = (size_t)(rt::level_table_floats(L) + L.n_c +
                                (stats ? rt::stats_scratch_words(L.n_c) : 0)) * sizeof(float);

@@ -9,15 +9,23 @@ closest-hit function):
   no gate; ``fold="pallas_flat"``.
 - ``fold_shortlist`` launches csrc/fold_shortlist.cu: the fold of each
   16x16 tile of an ``[H, W]`` frame over its chunk shortlist, each listed
-  chunk behind the lane's own gate, as the per-level chain folds; returns
-  (t, index); ``fold="pallas"``.
+  chunk behind the lane's own gate; returns (t, index); ``fold="pallas"``.
 - ``fold_shortlist_hit`` launches the same source with its record: the fold,
   then the winner's attributes regathered by index and its record math; it
   returns the 16 planes of the hit record (t recomputed, index, point,
   normal, colour, ambient, metallic, diffuse, specular, exponent).
 
-Each has its plain PyTorch version (``*_reference``), built from the
-per-level chain's plain fold (``cuda_fold._fold``) and its record math
+Both run trace_level.cu's fold (csrc trace_common.cuh's ``tile_fold``): the
+spheres in shared memory as float4 (``hit_smem_bytes``), a square root
+only for a sphere the ray meets ahead, and a warp that folds a chunk for
+its lanes together where fewer than ``cuda_level.PAIR_MIN_LANES`` of them pass
+its gate. ``fold_shortlist_pair_reference`` and
+``fold_shortlist_hit_pair_reference`` mirror that fold in plain PyTorch
+(``cuda_level.pair_fold``) and count its work by route; they equal the
+plain versions bit for bit.
+
+Each kernel has its plain PyTorch version (``*_reference``), built from
+the per-level chain's plain fold (``cuda_fold._fold``) and its record math
 (``_gather``, ``_kinds``, ``_record_math``); the wrapper runs it for CPU
 tensors and launches the kernel for CUDA tensors, or raises. Each wrapper
 counts its launches in ``.launches``. A lane whose alive plane ``w`` is 0
@@ -68,6 +76,9 @@ __all__ = [
     "record_planes",
     "fold_shortlist_hit_reference",
     "fold_shortlist_hit",
+    "fold_shortlist_pair_reference",
+    "fold_shortlist_hit_pair_reference",
+    "hit_smem_bytes",
     "shortlists",
     "fold_closest_flat",
     "fold_closest_shortlist",
@@ -131,6 +142,39 @@ def fold_shortlist_hit_reference(tables: FusedTables, shortlist, o: V3, d: V3,
     then ``record_planes`` from the fused table's attribute columns."""
     bt, bi = fold_shortlist_reference(tables, shortlist, o, d, w, tile)
     return record_planes(_attr_columns(tables.cols, tables.counts), tables.counts, o, d, bt, bi)
+
+
+def fold_shortlist_pair_reference(tables: FusedTables, shortlist, o: V3, d: V3,
+                                  w: torch.Tensor, k_min: int = cuda_level.PAIR_MIN_LANES, tile=None):
+    """Plain mirror of ``fold_shortlist``'s kernel: its warp-cooperative
+    fold (``cuda_level.pair_fold`` at threshold ``k_min``), dead lanes
+    given ``(MISS_T, -1)``. Returns ``((t, index), work)``: the pair equals
+    ``fold_shortlist_reference``'s bit for bit, and ``work`` is the fold's
+    work by route."""
+    bt, bi, work = cuda_level.pair_fold(tables, shortlist, o, d, w, k_min, tile)
+    alive = w > 0.0
+    return (torch.where(alive, bt, MISS_T), torch.where(alive, bi, -1)), work
+
+
+def fold_shortlist_hit_pair_reference(tables: FusedTables, shortlist, o: V3, d: V3,
+                                      w: torch.Tensor, k_min: int = cuda_level.PAIR_MIN_LANES,
+                                      tile=None):
+    """Plain mirror of ``fold_shortlist_hit``'s kernel:
+    ``fold_shortlist_pair_reference``, then ``record_planes``. Returns
+    ``(planes, work)``; the 16 planes equal
+    ``fold_shortlist_hit_reference``'s bit for bit."""
+    (bt, bi), work = fold_shortlist_pair_reference(tables, shortlist, o, d, w, k_min, tile)
+    cols = _attr_columns(tables.cols, tables.counts)
+    return record_planes(cols, tables.counts, o, d, bt, bi), work
+
+
+def hit_smem_bytes(tables: FusedTables) -> int:
+    """Dynamic shared bytes of a ``fold_shortlist(_hit)`` launch
+    (csrc/fold_shortlist.cu): the spheres as float4 (centre, |c|^2 - r^2),
+    the walls, boxes, chunk tables, slab, lights and sky as they are in the
+    packed table, and one tile's shortlist (``n_c`` int32): trace_level's
+    layout without its stats scratch."""
+    return cuda_level.level_smem_bytes(tables, False)
 
 
 # ---------------------------------------------------------------------------

@@ -78,8 +78,10 @@ __all__ = [
     "trace_level_reference",
     "lane_slots",
     "warp_cull_reference",
+    "pair_fold",
     "pair_fold_reference",
     "PAIR_MIN_LANES",
+    "PAIR_MIN_UNROLL",
     "trace_level",
     "trace_levels",
     "trace_level_bwd_reference",
@@ -103,9 +105,13 @@ _BIG = 1e30
 # and absolute, and the least largest direction component of a culled lane.
 CULL_REL, CULL_ABS, CULL_MIN_DIR = 1e-5, 1e-30, 1e-3
 # A listed chunk whose gate fewer than this many lanes of a warp pass is
-# folded by the whole warp, one lane's ray at a time (``pair_fold_reference``;
-# csrc trace_level.cu's K_PAIR). Picked by measurement on the H100 (PERF.md).
-PAIR_MIN_LANES = 12
+# folded by the whole warp, one lane's ray at a time (``pair_fold``; csrc
+# trace_common.cuh's K_PAIR, which trace_level.cu and fold_shortlist.cu
+# share). Picked by measurement on the H100 (PERF.md).
+PAIR_MIN_LANES = 8
+# Chunks of fewer spheres than this are folded lane by lane whatever the
+# warp's count (csrc trace_common.cuh's PAIR_MIN_UNROLL; by measurement).
+PAIR_MIN_UNROLL = 2
 
 
 def uses_shortlists(tables: FusedTables) -> bool:
@@ -344,16 +350,19 @@ def _sphere_t(t: dict, gi: torch.Tensor, o: V3, d: V3, oo, do):
     return -b_half - torch.sqrt(disc)
 
 
-def pair_fold_reference(tables: FusedTables, shortlist, o: V3, d: V3, w: torch.Tensor,
-                        acc: V3, is_last: bool, k_min: int = PAIR_MIN_LANES, tile=None,
-                        want_stats: bool = False):
-    """Plain mirror of ``trace_level``'s warp-cooperative fold: the outputs
-    of ``trace_level_reference`` (equal to them bit for bit), and a dict of
-    the fold's work by route.
+def pair_fold(tables: FusedTables, shortlist, o: V3, d: V3, w: torch.Tensor,
+              k_min: int = PAIR_MIN_LANES, tile=None):
+    """Plain mirror of the warp-cooperative fold of a shortlist (csrc
+    trace_common.cuh's ``fold_list``, which trace_level.cu and
+    fold_shortlist.cu run): each lane's ``(bt, bi)`` over the walls, the
+    boxes and its tile's listed chunks, and a dict of the fold's work by
+    route. The walls and boxes are folded on every lane, dead or not; the
+    spheres only on the lanes alive under ``w`` that meet the slab.
 
     The kernel's warps (``lane_slots``) walk their tile's list in order.
     At each listed chunk a lane's gate reads its own best t so far. Where
-    at least ``k_min`` lanes of the warp pass it, each of them folds the
+    at least ``k_min`` lanes of the warp pass it, or the scene's chunks
+    hold fewer than ``PAIR_MIN_UNROLL`` spheres, each of them folds the
     chunk's spheres in index order (ties to the lower index); where fewer
     pass, the warp takes those lanes one at a time (two at a time for
     chunks of at most 16 spheres), each of its lanes computes one sphere's
@@ -370,60 +379,74 @@ def pair_fold_reference(tables: FusedTables, shortlist, o: V3, d: V3, w: torch.T
     """
     t, counts = tables.cols, tables.counts
     n_s, unroll, n_c = counts["n_s"], counts["unroll"], counts["n_c"]
+    if unroll < PAIR_MIN_UNROLL:
+        k_min = 1  # every chunk lane by lane
     work = dict(lane_chunks=0, warp_chunks=0, per_lane=0, pair=0, pair_steps=0, used=0,
                 warps=0, pass_hist=[0] * 33)
     bt, bi = _fold(t, {**counts, "n_c": 0}, o, d)  # walls and boxes
-    alive = w > 0.0
-    if n_s:
-        lists = _lane_lists(shortlist, w, tile)
-        if lists is None:
-            pos = torch.arange(n_c, dtype=torch.long, device=w.device)
-            lists = (pos.expand(*w.shape, n_c), torch.full_like(bi, n_c))
-        _, _, warp = lane_slots(w.shape, tile, w.device)
-        n_warps = int(warp.max()) + 1
-        iv = (_srecip(d.x), _srecip(d.y), _srecip(d.z))
-        t0, t_ex, seg_ok = _slab_segment(t, o, iv)
-        oo = o.x * o.x + o.y * o.y + o.z * o.z
-        do = d.x * o.x + d.y * o.y + d.z * o.z
-        seg_ok = seg_ok & alive
-        work["used"] = int(seg_ok.sum())
-        work["warps"] = int((torch.bincount(warp[seg_ok], minlength=n_warps) > 0).sum())
-        two = 2 if unroll <= 16 else 1
-        for k in range(n_c):
-            listed = seg_ok & (k < lists[1])
-            if not bool(listed.any()):
-                continue
-            c = lists[0][..., k]
-            gate = listed & _chunk_gate(t, counts["gate"], c, o, d, iv, oo, do, t0,
-                                        torch.minimum(t_ex, bt))
-            n_pass = torch.bincount(warp[gate], minlength=n_warps)
-            lane_route = gate & (n_pass[warp] >= k_min)
-            pair_route = gate & ~lane_route
-            n_pair = n_pass * (n_pass < k_min)
-            work["lane_chunks"] += int(gate.sum())
-            work["warp_chunks"] += int((n_pass > 0).sum())
-            work["per_lane"] += int((n_pass >= k_min).sum())
-            work["pair"] += int((n_pair > 0).sum())
-            work["pair_steps"] += int(((n_pair + two - 1) // two).sum())
-            hist = torch.bincount(n_pass[n_pass > 0], minlength=33).tolist()
-            work["pass_hist"] = [a + b for a, b in zip(work["pass_hist"], hist)]
-            # Per lane: the chunk's spheres in index order.
-            lt, li = bt, bi
-            pt = torch.full_like(bt, float("inf"))
-            pi = torch.full_like(bi, 2 ** 31 - 1)
-            for j in range(unroll):
-                gi = c * unroll + j
-                real = gi < n_s
-                gi32 = gi.to(torch.int32)
-                tt = _sphere_t(t, gi.clamp_max(n_s - 1), o, d, oo, do)
-                take = real & (tt > 0.0) & ((tt < lt) | ((tt == lt) & (gi32 < li)))
-                lt, li = torch.where(take, tt, lt), torch.where(take, gi32, li)
-                # Cooperatively: the lexicographic minimum over t > 0.
-                cand = real & (tt > 0.0) & ((tt < pt) | ((tt == pt) & (gi32 < pi)))
-                pt, pi = torch.where(cand, tt, pt), torch.where(cand, gi32, pi)
-            merge = pair_route & ((pt < bt) | ((pt == bt) & (pi < bi)))
-            bt = torch.where(lane_route, lt, torch.where(merge, pt, bt))
-            bi = torch.where(lane_route, li, torch.where(merge, pi, bi))
+    if not n_s:
+        return bt, bi, work
+    lists = _lane_lists(shortlist, w, tile)
+    if lists is None:
+        pos = torch.arange(n_c, dtype=torch.long, device=w.device)
+        lists = (pos.expand(*w.shape, n_c), torch.full_like(bi, n_c))
+    _, _, warp = lane_slots(w.shape, tile, w.device)
+    n_warps = int(warp.max()) + 1
+    iv = (_srecip(d.x), _srecip(d.y), _srecip(d.z))
+    t0, t_ex, seg_ok = _slab_segment(t, o, iv)
+    oo = o.x * o.x + o.y * o.y + o.z * o.z
+    do = d.x * o.x + d.y * o.y + d.z * o.z
+    seg_ok = seg_ok & (w > 0.0)
+    work["used"] = int(seg_ok.sum())
+    work["warps"] = int((torch.bincount(warp[seg_ok], minlength=n_warps) > 0).sum())
+    two = 2 if unroll <= 16 else 1
+    for k in range(n_c):
+        listed = seg_ok & (k < lists[1])
+        if not bool(listed.any()):
+            continue
+        c = lists[0][..., k]
+        gate = listed & _chunk_gate(t, counts["gate"], c, o, d, iv, oo, do, t0,
+                                    torch.minimum(t_ex, bt))
+        n_pass = torch.bincount(warp[gate], minlength=n_warps)
+        lane_route = gate & (n_pass[warp] >= k_min)
+        pair_route = gate & ~lane_route
+        n_pair = n_pass * (n_pass < k_min)
+        work["lane_chunks"] += int(gate.sum())
+        work["warp_chunks"] += int((n_pass > 0).sum())
+        work["per_lane"] += int((n_pass >= k_min).sum())
+        work["pair"] += int((n_pair > 0).sum())
+        work["pair_steps"] += int(((n_pair + two - 1) // two).sum())
+        hist = torch.bincount(n_pass[n_pass > 0], minlength=33).tolist()
+        work["pass_hist"] = [a + b for a, b in zip(work["pass_hist"], hist)]
+        # Per lane: the chunk's spheres in index order.
+        lt, li = bt, bi
+        pt = torch.full_like(bt, float("inf"))
+        pi = torch.full_like(bi, 2 ** 31 - 1)
+        for j in range(unroll):
+            gi = c * unroll + j
+            real = gi < n_s
+            gi32 = gi.to(torch.int32)
+            tt = _sphere_t(t, gi.clamp_max(n_s - 1), o, d, oo, do)
+            take = real & (tt > 0.0) & ((tt < lt) | ((tt == lt) & (gi32 < li)))
+            lt, li = torch.where(take, tt, lt), torch.where(take, gi32, li)
+            # Cooperatively: the lexicographic minimum over t > 0.
+            cand = real & (tt > 0.0) & ((tt < pt) | ((tt == pt) & (gi32 < pi)))
+            pt, pi = torch.where(cand, tt, pt), torch.where(cand, gi32, pi)
+        merge = pair_route & ((pt < bt) | ((pt == bt) & (pi < bi)))
+        bt = torch.where(lane_route, lt, torch.where(merge, pt, bt))
+        bi = torch.where(lane_route, li, torch.where(merge, pi, bi))
+    return bt, bi, work
+
+
+def pair_fold_reference(tables: FusedTables, shortlist, o: V3, d: V3, w: torch.Tensor,
+                        acc: V3, is_last: bool, k_min: int = PAIR_MIN_LANES, tile=None,
+                        want_stats: bool = False):
+    """Plain mirror of ``trace_level`` with its warp-cooperative fold
+    (``pair_fold``): the outputs of ``trace_level_reference`` (equal to
+    them bit for bit), and ``pair_fold``'s dict of the fold's work by
+    route."""
+    t, counts = tables.cols, tables.counts
+    bt, bi, work = pair_fold(tables, shortlist, o, d, w, k_min, tile)
     hit = bt < MISS_T
     attrs = _gather(_attr_columns(t, counts), bi, hit)
     t_k, inc, w_n, o_n, d_n = _level_math(attrs, o, d, w, bt, hit, *_kinds(bi, hit, counts),

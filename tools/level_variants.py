@@ -5,7 +5,7 @@
 
 Each variant is a copy of the package's csrc/ with one or more lines
 changed (``VARIANTS``): the fold's cooperative threshold ``K_PAIR`` of
-trace_level.cu, its square root, its blocks an SM, the stats cull, the
+trace_common.cuh (which fold_shortlist.cu shares), its square root, its blocks an SM, the stats cull, the
 backward's light sums and blocks an SM, or the backward's attribute
 scatter or light sums cut out (timing only: its sums are then wrong). The
 ``*_parent`` variants patch the package before this design, given with
@@ -52,7 +52,7 @@ import soft_variants as sv  # noqa: E402
 
 SOURCES = ("trace_level", "trace_level_bwd")
 # name: {csrc file: [(line in the package's source, its replacement), ...]}
-K_PAIR = "constexpr int K_PAIR = 12;"
+K_PAIR = "constexpr int K_PAIR = 8;"
 SQRT_SKIP = ("  if (!(disc >= 0.0f && b_half < 0.0f)) return false;\n"
              "  tt = -b_half - sqrtf(disc);")
 FOLD_LOOP = "  for (int i = c * T.unroll; i < i1; ++i) {\n    const float4 g = sph[i];"
@@ -61,8 +61,8 @@ BWD_MIN = "constexpr int MIN_BLOCKS = 2;"
 VARIANTS = {
     "package": {},
     # The cooperative fold from fewer than K lanes; 1 never, 33 always.
-    **{f"k_pair{k}": {"trace_level.cu": [(K_PAIR, K_PAIR.replace("12", str(k)))]}
-       for k in (1, 4, 8, 16, 33)},
+    **{f"k_pair{k}": {"trace_common.cuh": [(K_PAIR, K_PAIR.replace("8", str(k)))]}
+       for k in (1, 4, 12, 16, 33)},
     # sqrtf on every sphere's discriminant, misses included (sphere_t).
     "plain_sqrt": {"trace_common.cuh": [(SQRT_SKIP, "  tt = -b_half - sqrtf(disc);")]},
     # sqrtf of 1 for a miss, no branch.
