@@ -5,9 +5,9 @@
 
 Phases, one line each: the card's name and power limit; the build of the
 nine kernels from csrc/ (one nvcc each, started together); the whole-trace
-kernels against their plain PyTorch versions on their five workloads (the
-forward with and without its residual planes, the backward on the forward's
-residuals); the per-level kernels (ray_stats, trace_level,
+kernels against their plain PyTorch versions on their seven workloads (up to
+grid-768 at 1920x1080 d3; the forward with and without its residual planes,
+the backward on the forward's residuals); the per-level kernels (ray_stats, trace_level,
 trace_level_bwd) against theirs on six workloads (grid-2048 at 1080p and
 five lights among them), level by level on the same inputs and shortlists, then the chain end
 to end and its backward, and the stats and a level on rays with zero, tiny
@@ -89,8 +89,25 @@ fold_flat; trace_level also on the demo scene at 640x640 d12); then
 prints them as one JSON line, and exits non-zero if the fold kernel
 differs from its plain mirror or the record kernel's index from the
 fold's on any launch. ``--hit-compare`` runs it as ``--soft-compare``
-does. The three modes share one harness (``COMPARE_MODES``, ``only``,
-``compare``).
+does.
+
+    python3 chip_smoke.py --whole-only [--root DIR]
+    python3 chip_smoke.py --whole-compare PARENT_DIR [--out FILE]
+
+``--whole-only`` runs the whole-trace diagnosis on the package at DIR
+(``ptxas -v`` and blocks per SM of trace_whole and trace_whole_bwd; on
+sprint3 1920x1080 d3, demo 640x640 d10 and grids of 64 to 768 spheres at
+1920x1080 d3 the forward's time with and without its residual planes and
+the backward's, with their bounds; per level of sprint3, grid-64 and
+grid-768 the lanes alive, and under row strips, 16x16 and 32x8 tiles the alive
+lanes a warp, the chunk reach of a lane and the union of a warp, and the
+fold's work by route from the plain mirror ``whole_pair_reference``, and
+the backward's winners a warp), the route rows (``whole_vs_levels``,
+forward and backward, kernels and calls) and the times of the kernels that
+share trace_common.cuh; then prints them as one JSON line, and exits
+non-zero if the forward kernel differs from its plain mirror.
+``--whole-compare`` runs it as ``--soft-compare`` does. The four modes
+share one harness (``COMPARE_MODES``, ``only``, ``compare``).
 """
 
 from __future__ import annotations
@@ -115,8 +132,10 @@ PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
 
 # (name, scene factory name and args, width, height, depth). The first is
-# the main path's shape; the fifth has a ragged end (n % 256 != 0); the last
-# is a 16-chunk scene of the widened fused class. These are the whole-trace
+# the main path's shape; the fifth has a ragged end (n % 256 != 0); the
+# sixth is a 16-chunk scene of the widened fused class, the last its largest
+# scene (24 chunks, a 45 KB table) at full size. The 1080p grids run in
+# tiles whose last row overhangs the frame. These are the whole-trace
 # kernels' workloads.
 CASES = (
     ("sprint3_1920x1080_d3", ("sprint3_scene", ()), 1920, 1080, 3),
@@ -125,6 +144,7 @@ CASES = (
     ("mixed_256x128_d2", ("mixed_primitive_scene", ()), 256, 128, 2),
     ("sprint3_333x111_d3", ("sprint3_scene", ()), 333, 111, 3),
     ("grid512_640x360_d3", ("grid_sphere_scene", (512,)), 640, 360, 3),
+    ("grid768_1920x1080_d3", ("grid_sphere_scene", (768,)), 1920, 1080, 3),
 )
 
 # The per-level chain's workloads. The first is the main path's shape:
@@ -258,6 +278,40 @@ def alive_levels(tables, idx: torch.Tensor) -> torch.Tensor:
     return torch.stack(alive)
 
 
+def whole_bound(tables, idx: torch.Tensor, alive: torch.Tensor, depth: int) -> dict:
+    """The whole-trace forward's bound on this run's data (selections
+    ``idx`` and ``alive`` lanes per level): each of the 7 input planes read
+    once, the rgb and each level's t and index written once (``bytes``),
+    against ``trace_whole_ops`` (``ops``); with ``emit_res`` also the 7
+    residual planes of each level past the first (``bound_res_ms``)."""
+    n = idx[0].numel()
+    out = dict(bytes=(7 + 3 + 2 * (depth + 1)) * n * 4,
+               ops=trace_whole_ops(tables.counts, idx.cpu().numpy(), alive.cpu().numpy()))
+    t_bytes, t_ops = out["bytes"] / PEAK_BYTES_S, out["ops"] / PEAK_F32_S
+    out["bound_ms"] = max(t_bytes, t_ops) * 1e3
+    out["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    t_res = (out["bytes"] + 7 * depth * n * 4) / PEAK_BYTES_S
+    out["bound_res_ms"] = max(t_res, t_ops) * 1e3
+    return out
+
+
+def whole_bwd_bound(tables, levels, depth: int) -> dict:
+    """The whole-trace backward's bound on this run's data: the image
+    cotangent and the 7 output planes for every lane; each level's
+    throughput for every lane, and its 6 ray planes, t and index only
+    where the lane is alive (``bytes``), against ``trace_whole_bwd_ops``."""
+    n = levels.w.numel()
+    alive = [levels.level(k)[2] > 0 for k in range(depth + 1)]
+    out = dict(bytes=4 * sum(n + 8 * int(a.sum()) for a in alive) + (3 + 7) * n * 4,
+               ops=sum(trace_whole_bwd_ops(tables.counts, levels.i[k].cpu().numpy(),
+                                           alive[k].cpu().numpy())
+                       for k in range(depth + 1)))
+    t_bytes, t_ops = out["bytes"] / PEAK_BYTES_S, out["ops"] / PEAK_F32_S
+    out["bound_ms"] = max(t_bytes, t_ops) * 1e3
+    out["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    return out
+
+
 def check_trace_whole(case, device, scale: int = 1) -> dict:
     """The kernel against its plain version on one workload: selections,
     t and rgb, then both timed with CUDA events."""
@@ -290,16 +344,24 @@ def check_trace_whole(case, device, scale: int = 1) -> dict:
     dead = ~alive
     dead_ok = bool(((i_k[dead] == -1) & (t_k[dead] == MISS_T)).all())
     clean = ~mism.any(dim=0)
-    err = torch.stack([(a - b).abs() for a, b in zip(rgb_k, rgb_p)])[:, clean]
+    pairs = list(zip(rgb_k, rgb_p))
+    # The plain version's own arithmetic overflows on a few firefly lanes (a
+    # grazing bounce leaves a direction far from unit length and the
+    # specular power reaches inf: one pixel of grid-768 at 1080p d3). There
+    # the kernel must give the same value (inf where inf, NaN where NaN);
+    # everywhere else it must be finite and close.
+    both = torch.stack([torch.isfinite(a) & torch.isfinite(b) for a, b in pairs])[:, clean]
+    err = torch.stack([(a - b).abs() for a, b in pairs])[:, clean][both]
     close = torch.stack([
-        torch.isclose(a, b, rtol=1e-4, atol=1e-5) for a, b in zip(rgb_k, rgb_p)
+        torch.isclose(a, b, rtol=1e-4, atol=1e-5) | same_mask(a, b) for a, b in pairs
     ])[:, clean]
     out = dict(
         name=name, shape=(height, width), depth=depth, alive=n_alive,
         mismatches=int(mism.sum()), mismatch_lines=lines, t_rel_max=t_rel_max,
         dead_ok=dead_ok, max_abs_err=float(err.max()) if err.numel() else 0.0,
         rgb_ok=bool(close.all()),
-        finite=all(bool(torch.isfinite(c).all()) for c in rgb_k),
+        finite=all(bool((torch.isfinite(a) | ~torch.isfinite(b)).all()) for a, b in pairs),
+        nonfinite=sum(int((~torch.isfinite(a)).sum()) for a in rgb_k),
     )
     # The training forward: the same outputs, and the residual planes (each
     # level k >= 1's input rays and throughput) bit-identical to the plain
@@ -314,14 +376,7 @@ def check_trace_whole(case, device, scale: int = 1) -> dict:
         and dead_ok and out["rgb_ok"] and out["finite"]
         and out["emit_same"] and out["res_mismatches"] == 0
     )
-    n = w.numel()
-    out["bytes"] = (7 + 3 + 2 * (depth + 1)) * n * 4
-    out["ops"] = trace_whole_ops(tables.counts, i_p.cpu().numpy(), alive.cpu().numpy())
-    t_bytes, t_ops = out["bytes"] / PEAK_BYTES_S, out["ops"] / PEAK_F32_S
-    out["bound_ms"] = max(t_bytes, t_ops) * 1e3
-    out["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-    t_res = (out["bytes"] + 7 * depth * n * 4) / PEAK_BYTES_S
-    out["bound_res_ms"] = max(t_res, t_ops) * 1e3
+    out.update(whole_bound(tables, i_p, alive, depth))
     if device != "cpu":
         out["ms"] = statistics.median(cuda_time_ms(
             lambda: cuda_fold.trace_whole(tables, o, d, w, depth), iters=20, warmup=3
@@ -380,14 +435,26 @@ def check_trace_whole_bwd(fwd: dict, name: str, device) -> dict:
     k_planes, p_planes = [*kern[0], *kern[1], kern[2]], [*plain[0], *plain[1], plain[2]]
     out = dict(name=name, alive=n_alive, plane_err={}, plane_rel_err={}, exceptions=[],
                finite=True)
+    # Where the forward overflowed (a firefly lane, check_trace_whole), the
+    # plain version's cotangents are not finite; the kernel's must be not
+    # finite there too, and finite and close everywhere else (scales and
+    # errors over the finite entries).
+    def finite_abs(x):
+        return x.abs()[torch.isfinite(x)]
+
     n_bad = 0
+    out["nonfinite"] = 0
     for pn, a, b in zip(planes, k_planes, p_planes):
-        scale = float(b.abs().max())
-        bad = alive & ~torch.isclose(a, b, rtol=1e-3, atol=1e-5 * scale)
+        fin = torch.isfinite(b)
+        scale = float(finite_abs(b).max()) if bool(fin.any()) else 0.0
+        bad = alive & ~torch.where(fin, torch.isclose(a, b, rtol=1e-3, atol=1e-5 * scale),
+                                   ~torch.isfinite(a))
         n_bad += int(bad.sum())
-        out["plane_err"][pn] = float((a - b).abs().max())
+        both = fin & torch.isfinite(a)
+        out["plane_err"][pn] = float((a - b)[both].abs().max()) if bool(both.any()) else 0.0
         out["plane_rel_err"][pn] = out["plane_err"][pn] / scale if scale else out["plane_err"][pn]
-        out["finite"] &= bool(torch.isfinite(a).all())
+        out["finite"] &= bool((torch.isfinite(a) | ~fin).all())
+        out["nonfinite"] += int((~fin).sum())
         out["exceptions"] += [
             f"  {pn} pixel ({y},{x}): kernel {float(a[y, x])!r} plain {float(b[y, x])!r}"
             for y, x in bad.nonzero().tolist()[:50]
@@ -395,35 +462,27 @@ def check_trace_whole_bwd(fwd: dict, name: str, device) -> dict:
     out["plane_exceptions"] = n_bad
     kl = scene_leaf_grads(fwd["scene"], kern[3], kern[4])
     pl = scene_leaf_grads(fwd["scene"], plain[3], plain[4])
-    leaf_rel = {}
+    leaf_rel, leaf_err = {}, {}
+    out["leaf_nonfinite_same"] = set(kl) == set(pl)
     for j, b in pl.items():
-        a = kl[j]
-        scale = float(b.abs().max())
-        err = float((a - b).abs().max())
-        leaf_rel[j] = err / scale if scale else (0.0 if err == 0.0 else float("inf"))
+        a = kl.get(j, torch.zeros_like(b))
+        fin = torch.isfinite(b)
+        out["leaf_nonfinite_same"] &= torch.equal(torch.isfinite(a), fin)
+        scale = float(finite_abs(b).max()) if bool(fin.any()) else 0.0
+        both = fin & torch.isfinite(a)
+        leaf_err[j] = float((a - b)[both].abs().max()) if bool(both.any()) else 0.0
+        leaf_rel[j] = leaf_err[j] / scale if scale else (0.0 if leaf_err[j] == 0.0 else float("inf"))
     out["leaf_rel_max"] = max(leaf_rel.values())
-    out["leaf_scale"] = max(float(b.abs().max()) for b in pl.values())
-    out["plane_scale"] = max(float(b.abs().max()) for b in p_planes)
-    out["leaf_err_max"] = max(float((kl[j] - pl[j]).abs().max()) for j in pl)
+    out["leaf_scale"] = max(float(finite_abs(b).max()) if finite_abs(b).numel() else 0.0
+                            for b in pl.values())
+    out["plane_scale"] = max(float(finite_abs(b).max()) if finite_abs(b).numel() else 0.0
+                             for b in p_planes)
+    out["leaf_err_max"] = max(leaf_err.values())
     out["max_abs_err"] = max(out["leaf_err_max"], *out["plane_err"].values())
     out["max_rel_err"] = max(out["leaf_rel_max"], *out["plane_rel_err"].values())
     out["ok"] = (n_bad <= 1e-4 * n_alive and out["leaf_rel_max"] <= 1e-3 and out["finite"]
-                 and set(kl) == set(pl))
-    # Bytes this run's data needs: the image cotangent and the 7 output
-    # planes for every lane; each level's throughput for every lane, and its
-    # 6 ray planes, t and index only where the lane is alive.
-    n = w.numel()
-    out["bytes"] = 4 * sum(
-        n + 8 * int((levels.level(k)[2] > 0).sum()) for k in range(depth + 1)
-    ) + (3 + 7) * n * 4
-    out["ops"] = sum(
-        trace_whole_bwd_ops(tables.counts, levels.i[k].cpu().numpy(),
-                            (levels.level(k)[2] > 0).cpu().numpy())
-        for k in range(depth + 1)
-    )
-    t_bytes, t_ops = out["bytes"] / PEAK_BYTES_S, out["ops"] / PEAK_F32_S
-    out["bound_ms"] = max(t_bytes, t_ops) * 1e3
-    out["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+                 and set(kl) == set(pl) and out["leaf_nonfinite_same"])
+    out.update(whole_bwd_bound(tables, levels, depth))
     out["ms"] = statistics.median(cuda_time_ms(
         lambda: cuda_fold.trace_whole_bwd(tables, attrs, ls, levels, ct, depth),
         iters=20, warmup=3,
@@ -907,9 +966,16 @@ def tile_sweep(device, case=LEVEL_CASES[0]) -> list:
     return [dict(tile=tile, **level_kernels_ms(tables, o, d, w, depth, tile)) for tile in TILES]
 
 
-def whole_vs_levels(device) -> list:
-    """Grids of 64 to 768 spheres (4 to 24 chunks; the largest table that
-    fits the whole-trace kernels' 48 KB) at 1920x1080 d3 through both
+# The route rows' grids: 4 to 24 chunks, the whole-trace class (grid-768's
+# 45 KB table is the largest under its 48 KB); past it, grid-1024 (c5's
+# scene, 32 chunks) and grid-2048 (64), whose tables the whole-trace kernels
+# take too (their shared tables fit the 227 KB a block can have).
+ROUTE_GRIDS = (64, 130, 256, 512, 768)
+ROUTE_GRIDS_PAST = (1024, 2048)
+
+
+def whole_vs_levels(device, grids=ROUTE_GRIDS) -> list:
+    """Grids of ``grids`` spheres at 1920x1080 d3 through both
     routes: the selections of the two routes' kernels against each other;
     forward, the whole-trace kernel's time against the per-level kernels'
     summed device times (``level_kernels_ms``) and each route's call as a
@@ -922,7 +988,7 @@ def whole_vs_levels(device) -> list:
     from raytracer_tpu_torch.utils.profiler import _calls_ms
 
     rows = []
-    for n in (64, 130, 256, 512, 768):
+    for n in grids:
         scene = make_scene(("grid_sphere_scene", (n,)), device)
         tables = cuda_fold.fused_tables(scene)
         o, d, w = frame_rays(1920, 1080, device)
@@ -946,10 +1012,36 @@ def whole_vs_levels(device) -> list:
             whole_bwd_ms=event_ms(
                 lambda: cuda_fold.trace_whole_bwd(tables, attrs, ls, lv_w, ct, 3),
                 iters=10, warmup=2),
+            levels_bwd_kernels_ms=level_bwd_kernels_ms(tables, attrs, ls, lv_l, ct, 3),
+            whole_bwd_call_ms=_calls_ms(
+                lambda: cuda_fold.trace_whole_bwd(tables, attrs, ls, lv_w, ct, 3), 10),
             levels_bwd_call_ms=_calls_ms(
                 lambda: cuda_level.trace_levels_bwd(tables, attrs, ls, lv_l, ct, 3), 10),
         ))
     return rows
+
+
+def level_bwd_kernels_ms(tables, attrs, ls, levels, ct, depth: int) -> float:
+    """The per-level backward chain's ``trace_level_bwd`` launches of one
+    fit step, each timed alone on the cotangents the chain passes it
+    (``event_ms``), summed."""
+    from raytracer_tpu_torch.ops import cuda_level
+
+    w = levels.w
+    sums = (torch.zeros(attrs.shape, dtype=torch.float64, device=w.device),
+            torch.zeros(ls.shape, dtype=torch.float64, device=w.device))
+    total, ct_next = 0.0, None
+    for k in reversed(range(depth + 1)):
+        lo, ld, lw = levels.level(k)
+        cn = ct_next
+
+        def launch():
+            return cuda_level.trace_level_bwd(tables, attrs, ls, lo, ld, lw, levels.t[k],
+                                              levels.i[k], ct, cn, k == depth, sums)
+
+        total += event_ms(launch, iters=10, warmup=2)
+        ct_next = launch()
+    return total
 
 
 def drive_main_path(device, width: int = 1920, height: int = 1080, depth: int = 3):
@@ -3282,6 +3374,182 @@ def hit_extras(device) -> dict:
     return {"frames": hit_frames(device), "shared": hit_shared_times(device)}
 
 
+def whole_extras(device) -> dict:
+    return {"route": route_rows(device), "shared": hit_shared_times(device)}
+
+
+# ---------------------------------------------------------------------------
+# The whole-trace diagnosis (trace_whole, trace_whole_bwd) and --whole-only
+# ---------------------------------------------------------------------------
+
+# (name, scene, width, height, depth): the whole-trace class's frames, from
+# its main path (sprint3) and the reference renderer's default frame (demo
+# d10) to its largest scene (grid-768: 24 chunks, a 45 KB table).
+WHOLE_DIAG_FRAMES = (
+    ("sprint3_1920x1080_d3", ("sprint3_scene", ()), 1920, 1080, 3),
+    ("demo_640x640_d10", ("reference_demo_scene", ()), 640, 640, 10),
+    *((f"grid{n}_1920x1080_d3", ("grid_sphere_scene", (n,)), 1920, 1080, 3)
+      for n in (64, 130, 256, 512, 768)),
+)
+# The frames diagnosed level by level (lanes, reach, fold work by route).
+WHOLE_REACH = ("sprint3_1920x1080_d3", "grid64_1920x1080_d3", "grid768_1920x1080_d3")
+# The lane layouts the reach is counted in: warps of 32 consecutive pixels of
+# a row (the flat planes in strips of 256), of 2 x 16 pixels (16x16 tiles)
+# and of 4 x 8 (32x8 tiles, the kernel's).
+WHOLE_LAYOUTS = (("strips", (1, 256)), ("tiles", (16, 16)), ("tiles32x8", (32, 8)))
+
+
+def whole_smem(tables) -> tuple:
+    """Dynamic shared bytes of a trace_whole and a trace_whole_bwd launch:
+    the package's own plans where it has them, else the parent's layout (the
+    packed table; the backward adds its [n_prim, 14] and light rows)."""
+    from raytracer_tpu_torch.ops import cuda_fold
+
+    plan = getattr(cuda_fold, "whole_smem_bytes", None)
+    if plan is not None:
+        return plan(tables), cuda_fold.whole_bwd_smem_bytes(tables)
+    c = tables.counts
+    rows = 14 * (c["n_s"] + c["n_w"] + c["n_b"]) + 6 * (c["n_pt"] + c["n_sun"]) + 10
+    return tables.smem_bytes, tables.smem_bytes + 4 * rows
+
+
+def whole_level_rows(tables, o, d, w, depth: int, t_k, i_k, levels) -> list:
+    """Per level of one frame: the lanes alive and, in each layout of
+    WHOLE_LAYOUTS, the alive lanes of a warp that has one, and from the
+    plain mirror ``whole_pair_reference`` at the package's K (the
+    per-level ``pair_fold`` in that layout) the chunks a used lane's gate
+    passes, their union over its warp, the fold's work by route and the
+    cooperative share at each K of PAIR_SWEEP; and whether the kernel's t
+    and index equal the mirror's, bit for bit. Without the mirror in the
+    package, the lanes only. The backward's winners a warp
+    (``bwd_scatter_stats``)."""
+    from raytracer_tpu_torch.ops import cuda_fold, cuda_level
+
+    mirror = getattr(cuda_fold, "whole_pair_reference", None)
+    rows = [dict(level=k, alive=int((levels.level(k)[2] > 0).sum()),
+                 bwd=bwd_scatter_stats(tables, i_k[k], levels.level(k)[2]))
+            for k in range(depth + 1)]
+    for lay, tile in WHOLE_LAYOUTS:
+        if mirror is not None:
+            (_, tm, im), works = mirror(tables, o, d, w, depth, tile=tile)
+            same = same_planes(t_k, tm) and torch.equal(i_k, im)
+            (h, wd), tile = cuda_fold.whole_grid(w.shape, tile, tables)
+        else:
+            works, same = [None] * (depth + 1), None
+            h, wd = (1, w.numel()) if tile[0] == 1 else tuple(w.shape)
+        warp = cuda_level.lane_slots((h, wd), tile, w.device)[2]
+        n_warps = int(warp.max()) + 1
+        for k, row in enumerate(rows):
+            lw = levels.level(k)[2].reshape(h, wd)
+            per = torch.bincount(warp[lw > 0], minlength=n_warps)
+            r = dict(alive_per_warp=float(per[per > 0].float().mean()) if bool((per > 0).any())
+                     else 0.0, mirror_same=same)
+            work = works[k]
+            if work is not None:
+                r.update(work=work, lane_reach=work["lane_chunks"] / max(work["used"], 1),
+                         warp_union=work["warp_chunks"] / max(work["warps"], 1),
+                         pair_shares=pair_shares(work["pass_hist"],
+                                                 tables.counts["unroll"] <= 16))
+                r["warp_ratio"] = r["warp_union"] / max(r["lane_reach"], 1e-30)
+            row[lay] = r
+    return rows
+
+
+def whole_diagnosis(device, procs=None, reach: bool = True) -> dict:
+    """``ptxas -v`` of the whole-trace kernels (registers, spills) with
+    their blocks per SM at each frame's shared bytes, and for each frame of
+    WHOLE_DIAG_FRAMES the kernels' times (``event_ms``): the forward with
+    and without its residual planes, the backward on the forward's
+    residuals and a seeded image cotangent, with their bounds on the run's
+    data; with ``reach``, for the frames of WHOLE_REACH, the per-level rows
+    of ``whole_level_rows``."""
+    from raytracer_tpu_torch.core.v3 import V3
+    from raytracer_tpu_torch.ops import cuda_fold
+
+    rows = ptxas_finish(procs or ptxas_start(("trace_whole", "trace_whole_bwd"))) if reach else []
+    out = {"ptxas": rows, "scenes": {}}
+    for name, spec, width, height, depth in WHOLE_DIAG_FRAMES:
+        scene = make_scene(spec, device)
+        tables = cuda_fold.fused_tables(scene)
+        o, d, w = frame_rays(width, height, device)
+        _, t_k, i_k, res = cuda_fold.trace_whole(tables, o, d, w, depth, emit_res=True)
+        levels = cuda_fold.Residuals(o, d, w, t_k, i_k, res)
+        attrs, ls = (a.detach() for a in cuda_fold.attribute_tables(scene))
+        gen = torch.Generator().manual_seed(1234)
+        ct = V3(*(torch.randn(w.shape, generator=gen).to(device) for _ in range(3)))
+        alive = torch.stack([levels.level(k)[2] > 0 for k in range(depth + 1)])
+        fb, bb = whole_bound(tables, i_k, alive, depth), whole_bwd_bound(tables, levels, depth)
+        smem = whole_smem(tables)
+        sc = dict(n_c=tables.counts["n_c"], unroll=tables.counts["unroll"], smem=smem,
+                  alive=[int(a.sum()) for a in alive],
+                  fwd_ms=[event_ms(lambda: cuda_fold.trace_whole(tables, o, d, w, depth))],
+                  fwd_res_ms=[event_ms(
+                      lambda: cuda_fold.trace_whole(tables, o, d, w, depth, emit_res=True))],
+                  bwd_ms=[event_ms(
+                      lambda: cuda_fold.trace_whole_bwd(tables, attrs, ls, levels, ct, depth))],
+                  bound_ms=fb["bound_ms"], bound_res_ms=fb["bound_res_ms"],
+                  bound_by=fb["bound_by"], bwd_bound_ms=bb["bound_ms"],
+                  bwd_bound_by=bb["bound_by"])
+        if reach and name in WHOLE_REACH:
+            sc["levels"] = whole_level_rows(tables, o, d, w, depth, t_k, i_k, levels)
+        for row in rows:
+            fwd = row["source"] == "trace_whole"
+            row[f"blocks_per_sm_{name}"] = occupancy(row, 256, smem[0] if fwd else smem[1])
+        out["scenes"][name] = sc
+    return out
+
+
+def print_whole_diagnosis(diag: dict):
+    for row in diag["ptxas"]:
+        occ = {k: v for k, v in row.items() if k.startswith("blocks_per_sm")}
+        print(f"whole diagnosis ptxas {row['kernel']}: registers={row.get('registers')} "
+              f"spill_stores={row.get('spill_stores')} spill_loads={row.get('spill_loads')} "
+              f"{occ}", flush=True)
+    for name, sc in diag["scenes"].items():
+        print(f"whole diagnosis {name}: n_c={sc['n_c']} unroll={sc['unroll']} smem={sc['smem']} "
+              f"alive={sc['alive']} trace_whole_ms={sc['fwd_ms'][0]:.4f} "
+              f"emit_res_ms={sc['fwd_res_ms'][0]:.4f} (bound {sc['bound_ms']:.4f} / "
+              f"{sc['bound_res_ms']:.4f} {sc['bound_by']}) trace_whole_bwd_ms="
+              f"{sc['bwd_ms'][0]:.4f} (bound {sc['bwd_bound_ms']:.4f} {sc['bwd_bound_by']})",
+              flush=True)
+        for r in sc.get("levels", []):
+            line = (f"  level {r['level']}: alive={r['alive']} bwd winners_per_warp="
+                    f"{r['bwd']['winners_per_warp']:.3f} wall_box_warps={r['bwd']['wall_box_warps']}")
+            for lay, _ in WHOLE_LAYOUTS:
+                x = r[lay]
+                line += f"; {lay}: alive_per_warp={x['alive_per_warp']:.2f}"
+                if "work" in x:
+                    wk = x["work"]
+                    line += (f" lane_reach={x['lane_reach']:.3f} warp_union={x['warp_union']:.3f}"
+                             f" ratio={x['warp_ratio']:.3f} per_lane={wk['per_lane']}"
+                             f" pair={wk['pair']} pair_steps={wk['pair_steps']} pair_shares="
+                             + str({k: round(v["pair_share"], 3)
+                                    for k, v in x["pair_shares"].items()})
+                             + f" mirror_same={x['mirror_same']}")
+            print(line, flush=True)
+
+
+def whole_failed(diag: dict) -> list:
+    """The frames and levels of a whole-trace diagnosis where the forward
+    kernel differs from its plain mirror."""
+    return [f"{name} ({lay})" for name, sc in diag["scenes"].items()
+            for lay, _ in WHOLE_LAYOUTS
+            if any(r[lay]["mirror_same"] is False for r in sc.get("levels", []))]
+
+
+def route_rows(device) -> dict:
+    """``whole_vs_levels``' times as one flat dict (``<grid>_<measure>``),
+    and its selection mismatches."""
+    keys = ("whole_ms", "whole_call_ms", "levels_call_ms", "whole_bwd_ms",
+            "levels_bwd_kernels_ms", "whole_bwd_call_ms", "levels_bwd_call_ms")
+    out = {}
+    for row in whole_vs_levels(device):
+        out[f"{row['name']}_levels_kernels_ms"] = row["kernels"]["sum_ms"]
+        out.update({f"{row['name']}_{k}": row[k] for k in keys})
+        out[f"{row['name']}_mismatches"] = row["mismatches"]
+    return out
+
+
 # --MODE-only and --MODE-compare: per mode the kernels built, those whose
 # ``ptxas -v`` the diagnosis reads, the diagnosis and its printer, the
 # launch lists of each diagnosed scene that --MODE-compare sets side by
@@ -3302,6 +3570,11 @@ COMPARE_MODES = {
                        "trace_whole", "trace_whole_bwd", "fold_flat"),
                 ptxas=("fold_shortlist",), diagnose=hit_diagnosis, show=print_hit_diagnosis,
                 per_launch=("fold_ms", "hit_ms"), extras=hit_extras, failed=hit_failed),
+    "whole": dict(build=("trace_whole", "trace_whole_bwd", "ray_stats", "trace_level",
+                         "trace_level_bwd", "fold_flat", "fold_shortlist"),
+                  ptxas=("trace_whole", "trace_whole_bwd"), diagnose=whole_diagnosis,
+                  show=print_whole_diagnosis, per_launch=("fwd_ms", "fwd_res_ms", "bwd_ms"),
+                  extras=whole_extras, failed=whole_failed),
 }
 
 
@@ -3391,7 +3664,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
-    from raytracer_tpu_torch.ops import _build, cuda_level
+    from raytracer_tpu_torch.ops import _build, cuda_fold, cuda_level
     from raytracer_tpu_torch.utils.profiler import (
         benchmark_fit_step,
         benchmark_forward_backward,
@@ -3422,6 +3695,7 @@ def main() -> int:
             f"trace_whole {r['name']}: ok={r['ok']} alive={r['alive']} "
             f"mismatches={r['mismatches']} t_rel_max={r['t_rel_max']:.3g} "
             f"max_abs_err={r['max_abs_err']:.3g} dead_ok={r['dead_ok']} "
+            f"nonfinite_like_plain={r['nonfinite']} "
             f"emit_res: same={r['emit_same']} res_mismatches={r['res_mismatches']} "
             f"ms={r['ms']:.4f} ms_res={r['ms_res']:.4f} plain_ms={r['plain_ms']:.2f} "
             f"bound_ms={r['bound_ms']:.4f} bound_res_ms={r['bound_res_ms']:.4f} "
@@ -3438,7 +3712,7 @@ def main() -> int:
             f"plane_max_abs_err={ {k: float(f'{v:.3g}') for k, v in b['plane_err'].items()} } "
             f"leaf_rel_max={b['leaf_rel_max']:.3g} leaf_max_abs_err={b['leaf_err_max']:.3g} "
             f"max_rel_err={b['max_rel_err']:.3g} max|plain|: planes={b['plane_scale']:.3g} "
-            f"leaves={b['leaf_scale']:.3g} "
+            f"leaves={b['leaf_scale']:.3g} nonfinite_in_plain={b['nonfinite']} "
             f"finite={b['finite']} ms={b['ms']:.4f} plain_ms={b['plain_ms']:.2f} "
             f"bound_ms={b['bound_ms']:.4f} ({b['bound_by']}; {b['bytes'] / 1e6:.1f} MB, "
             f"{b['ops'] / 1e9:.3g} GFLOP)", flush=True,
@@ -3467,8 +3741,10 @@ def main() -> int:
     best = min(sweep, key=lambda row: row["sum_ms"])
     print(f"tile sweep: fastest {best['tile']}, default LEVEL_TILE {cuda_level.LEVEL_TILE}",
           flush=True)
-    for row in whole_vs_levels("cuda"):
-        ok &= row["mismatches"] <= 1e-5 * row["alive"]
+    route = whole_vs_levels("cuda", ROUTE_GRIDS + ROUTE_GRIDS_PAST)
+    for row in route:
+        if row["n_c"] <= cuda_fold.FUSED_MAX_CHUNKS:  # the rows past the class inform only
+            ok &= row["mismatches"] <= 1e-5 * row["alive"]
         k = row["kernels"]
         print(f"whole vs per-level {row['name']} 1920x1080 d3 ({row['n_c']} chunks, table "
               f"{row['table_bytes']} B): forward trace_whole_ms={row['whole_ms']:.4f} "
@@ -3476,7 +3752,9 @@ def main() -> int:
               f"trace_level {[round(v, 4) for v in k['level_ms']]}, listed "
               f"{[round(v, 2) for v in k['listed']]}) call_ms whole={row['whole_call_ms']:.4f} "
               f"per_level={row['levels_call_ms']:.4f}; backward trace_whole_bwd_ms="
-              f"{row['whole_bwd_ms']:.4f} per_level_call_ms={row['levels_bwd_call_ms']:.4f}; "
+              f"{row['whole_bwd_ms']:.4f} per_level_kernels_ms={row['levels_bwd_kernels_ms']:.4f} "
+              f"call_ms whole={row['whole_bwd_call_ms']:.4f} "
+              f"per_level={row['levels_bwd_call_ms']:.4f}; "
               f"selection_mismatches={row['mismatches']} of {row['alive']} alive "
               f"t_equal_where_same={row['t_equal']}", flush=True)
 
@@ -3744,6 +4022,14 @@ def main() -> int:
         "ms": main["ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "ms_emit_res": main["ms_res"], "bound_emit_res_ms": main["bound_res_ms"],
+        "ms_by_case": {r["name"]: r["ms"] for r in results},
+        "ms_emit_res_by_case": {r["name"]: r["ms_res"] for r in results},
+        "bound_ms_by_case": {r["name"]: r["bound_ms"] for r in results},
+        "bound_emit_res_ms_by_case": {r["name"]: r["bound_res_ms"] for r in results},
+        "route_1920x1080_d3": {r["name"]: {
+            "n_c": r["n_c"], "whole_ms": r["whole_ms"],
+            "per_level_kernels_ms": r["kernels"]["sum_ms"], "whole_call_ms": r["whole_call_ms"],
+            "per_level_call_ms": r["levels_call_ms"]} for r in route},
         "library_ms": None,
         "check": all(r["ok"] for r in results),
     }, {
@@ -3757,6 +4043,13 @@ def main() -> int:
         "max_rel_err_all_cases": max(b["max_rel_err"] for b in bwd_results),
         "ms": bmain["ms"], "plain_ms": bmain["plain_ms"],
         "bound_ms": bmain["bound_ms"], "bound_by": bmain["bound_by"],
+        "ms_by_case": {b["name"]: b["ms"] for b in bwd_results},
+        "bound_ms_by_case": {b["name"]: b["bound_ms"] for b in bwd_results},
+        "route_1920x1080_d3": {r["name"]: {
+            "n_c": r["n_c"], "whole_ms": r["whole_bwd_ms"],
+            "per_level_kernels_ms": r["levels_bwd_kernels_ms"],
+            "whole_call_ms": r["whole_bwd_call_ms"],
+            "per_level_call_ms": r["levels_bwd_call_ms"]} for r in route},
         "library_ms": None,
         "check": all(b["ok"] for b in bwd_results),
     }, {

@@ -5,7 +5,9 @@
 //
 // Included by trace_whole.cu, trace_whole_bwd.cu, ray_stats.cu,
 // trace_level.cu, trace_level_bwd.cu, fold_flat.cu and fold_shortlist.cu
-// (trace_level.cu and fold_shortlist.cu share a tile's fold, `tile_fold`);
+// (trace_level.cu and fold_shortlist.cu share a tile's fold, `tile_fold`;
+// trace_whole.cu walks the same `fold_list` over every chunk; both
+// backward kernels share the adjoint and its sums);
 // ops/_build.py keys each library on its .cu and the headers it includes. Every function follows the plain
 // PyTorch version in raytracer_tpu_torch/ops/cuda_fold.py op for op: build
 // with -fmad=false and without fast math, so each product and sum rounds once
@@ -134,6 +136,14 @@ __device__ __forceinline__ Tab tab_level_shared(const Layout& L, const float* g_
   return T;
 }
 
+// Opts `kernel` in to `smem` bytes of dynamic shared memory where that is
+// more than the 48 KB a block gets by default.
+template <class K>
+inline cudaError_t opt_in_smem(K kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
 // The grid of a kernel that walks `n_items` work items with a grid stride:
 // as many blocks of `block` threads and `smem` bytes of dynamic shared memory
 // as fit on the card at once (at most n_items), so each block pays its
@@ -142,11 +152,8 @@ __device__ __forceinline__ Tab tab_level_shared(const Layout& L, const float* g_
 template <class K>
 inline cudaError_t persistent_grid(K kernel, int block, size_t smem, int n_items,
                                    int* n_blocks) {
-  cudaError_t err = cudaSuccess;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
+  cudaError_t err = opt_in_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
   int dev = 0, n_sm = 0, per_sm = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
   if ((err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
@@ -264,7 +271,8 @@ __device__ __forceinline__ float sphere_t(float cx, float cy, float cz, float cr
   return -b_half - sqrtf(disc);
 }
 
-// The spheres of chunk c into (bt, bi), ties to the lower global index.
+// The spheres of chunk c into (bt, bi), ties to the lower global index,
+// read as columns of the table (trace_whole.cu's lane route).
 __device__ __forceinline__ void fold_chunk(const Tab& T, int c, const Ray& r, const RayTerms& q,
                                            float& bt, int& bi) {
   const int i1 = min((c + 1) * T.unroll, T.n_s);
@@ -279,8 +287,9 @@ __device__ __forceinline__ void fold_chunk(const Tab& T, int c, const Ray& r, co
 
 // ---------------------------------------------------------------------------
 // The warp-cooperative fold of a shortlist (trace_level.cu and
-// fold_shortlist.cu, through tile_fold). Every lane of the warp calls
-// fold_chunk_shared and fold_list, in warp-uniform control flow.
+// fold_shortlist.cu, through tile_fold; trace_whole.cu over every chunk).
+// Every lane of the warp calls fold_chunk_shared and fold_list, in
+// warp-uniform control flow.
 // ---------------------------------------------------------------------------
 
 // Whether sphere_t of this sphere is > 0, and then its value in tt, the
@@ -374,22 +383,30 @@ __device__ __forceinline__ void fold_chunk_shared(const Tab& T, const float4* sp
 
 // A listed chunk whose gate fewer lanes of a warp pass is folded by the
 // whole warp (cuda_level.PAIR_MIN_LANES; chosen by measurement for
-// trace_level and fold_shortlist alike, PERF.md).
+// trace_level, fold_shortlist and trace_whole alike, PERF.md).
 constexpr int K_PAIR = 8;
 // Chunks of fewer spheres than this are folded lane by lane whatever their
 // warp's count: a lane tests them sooner than the warp shares one ray
 // (cuda_level.PAIR_MIN_UNROLL; chosen by measurement, PERF.md).
 constexpr int PAIR_MIN_UNROLL = 2;
 
-// The shortlist `list` (n_list chunks, in order) into each lane's (bt, bi),
-// the spheres read from `sph` (tab_level_shared):
+// Every chunk in index order: fold_list's list for the whole-trace kernel,
+// which walks every chunk behind its per-lane gates (no shortlist).
+struct IdentityList {
+  __device__ __forceinline__ int operator[](int k) const { return k; }
+};
+
+// The shortlist `list` (n_list chunks, in order: an int array, or
+// IdentityList) into each lane's (bt, bi), the spheres read from `sph`
+// (tab_level_shared):
 // at each chunk the lanes of `seg` (alive, meeting the slab) gate it
 // against [t0, min(t_ex, bt)]; where at least K_PAIR lanes pass, or the
 // chunks hold fewer than PAIR_MIN_UNROLL spheres, each folds it alone
 // (fold_chunk_hit), else the warp folds it for them (fold_chunk_shared).
 // Either way a lane's best is the lexicographic minimum over the chunks its
 // gate passed, in list order.
-__device__ __forceinline__ void fold_list(const Tab& T, const float4* sph, const int* list,
+template <class List>
+__device__ __forceinline__ void fold_list(const Tab& T, const float4* sph, const List& list,
                                           int n_list, bool seg, const Ray& r, const RayTerms& q,
                                           float t0, float t_ex, float& bt, int& bi) {
   for (int k = 0; k < n_list; ++k) {
@@ -794,6 +811,77 @@ struct WarpLsSink {
   __device__ __forceinline__ void add(int j, float v) const { warp_add(&s[j], v); }
 };
 
+// Light and sky slots up to which each lane of a backward kernel keeps its
+// own sums in shared memory (LaneLsSink: 32 KB a block of 256; three
+// lights), past which a warp sums each ray's (WarpLsSink). Chosen by
+// measurement (PERF.md).
+constexpr int LANE_LS_MAX = 32;
+
+// level_adjoint's light and sky cotangents summed per lane in shared memory
+// (slot j of thread t at s[j * BLOCK + t]) over everything the lane runs;
+// the block sums them once at its end (flush_ls).
+template <int BLOCK>
+struct LaneLsSink {
+  float* s;
+  __device__ __forceinline__ void add(int j, float v) const { s[j * BLOCK + threadIdx.x] += v; }
+};
+
+// Shared floats of a block's light and sky sums: each lane's slots
+// (LaneLsSink) for at most LANE_LS_MAX of them, else one row (WarpLsSink).
+__host__ __device__ inline int ls_floats(int n_ls, int block) {
+  return n_ls <= LANE_LS_MAX ? n_ls * block : n_ls;
+}
+
+// Adds a block's light and sky sums (`lane_ls`: each lane's slots, else
+// one row) into the float64 row `gl`. After a __syncthreads; every thread
+// of the block calls it.
+template <int BLOCK>
+__device__ __forceinline__ void flush_ls(const float* s_ls, int n_ls, bool lane_ls, double* gl) {
+  const int lane = threadIdx.x & 31;
+  if (lane_ls) {
+    for (int j = threadIdx.x >> 5; j < n_ls; j += BLOCK / 32) {
+      float v = 0.0f;
+      for (int k = lane; k < BLOCK; k += 32) v += s_ls[j * BLOCK + k];
+      v = warp_sum(v);
+      if (lane == 0) atomicAdd(&gl[j], (double)v);
+    }
+  } else {
+    for (int j = threadIdx.x; j < n_ls; j += BLOCK) atomicAdd(&gl[j], (double)s_ls[j]);
+  }
+}
+
+// The lane of the n-th (from 0) set bit of m, which has more than n.
+__device__ __forceinline__ int nth_set(unsigned m, int n) {
+  int p = 0;
+#pragma unroll
+  for (int s = 16; s; s >>= 1)
+    if (__popc(m & ((1u << (p + s)) - 1u)) <= n) p += s;
+  return p;
+}
+
+// Sums the 14 attribute cotangents `ca` over the lanes of the warp that hit
+// the same primitive (`act` lanes, winner `bi`): one `__match_any_sync`
+// finds each group, and a tree over the lanes' ranks in it adds their rows
+// (log2 of the largest group steps of 14 shuffles; none where every lane
+// hit another primitive). Returns whether this lane is its group's first,
+// which then holds the group's sums. Every lane of the warp calls it.
+__device__ __forceinline__ bool group_sums(bool act, int bi, float ca[14]) {
+  const int lane = threadIdx.x & 31;
+  const unsigned peers = __match_any_sync(FULL, act ? bi : -1);
+  const int rank = __popc(peers & ((1u << lane) - 1u)), size = __popc(peers);
+  const int widest = (int)__reduce_max_sync(FULL, act ? (unsigned)size : 1u);
+  for (int off = 1; off < widest; off <<= 1) {
+    const bool take = (rank & (2 * off - 1)) == 0 && rank + off < size;
+    const int src = take ? nth_set(peers, rank + off) : lane;
+#pragma unroll
+    for (int c = 0; c < 14; ++c) {
+      const float x = __shfl_sync(FULL, ca[c], src);
+      if (take) ca[c] += x;
+    }
+  }
+  return act && rank == 0;
+}
+
 // One light's diffuse and specular lobes at a hit (light_term), with the
 // intermediates its adjoint needs.
 struct Lobes {
@@ -860,7 +948,8 @@ __device__ __forceinline__ void lobes_bwd(
 // the cotangents of the level's inputs (c_o, c_d, c_w) and of the winner's
 // 14 gathered attributes (ca); the light and sky cotangents go to `ls`
 // (`ls.add(j, v)` for slot j of the row: 6 per point light, 6 per sun, the
-// 10 sky scalars; WarpLsSink sums them over the warp into a shared row). A
+// 10 sky scalars; LaneLsSink keeps each lane's sums, WarpLsSink sums them
+// over the warp into a shared row). A
 // dead lane (w == 0) gets zeros: its caller passes its cotangents through.
 // Every lane of the warp must call it. Returns whether the lane hit a
 // primitive (its attributes have cotangents).
@@ -1175,17 +1264,6 @@ __device__ __forceinline__ bool level_adjoint(
     }
   }
   return act;
-}
-
-// level_adjoint with its light and sky cotangents summed over the warp into
-// the shared row `s_ls` (WarpLsSink).
-__device__ __forceinline__ bool level_adjoint(
-    const Tab& T, bool is_last, bool alive, const float o[3], const float d[3], float w,
-    float t_sel, int bi, float car, float cag, float cab, const float co[3],
-    const float cd[3], float cw, float c_o[3], float c_d[3], float& c_w, float ca[14],
-    float* s_ls) {
-  return level_adjoint(T, is_last, alive, o, d, w, t_sel, bi, car, cag, cab, co, cd, cw, c_o,
-                       c_d, c_w, ca, WarpLsSink{s_ls});
 }
 
 }  // namespace rt

@@ -23,12 +23,14 @@
 // Sums over lanes: each lane sums its light and sky cotangents over its
 // grid stride in shared slots of its own (no shuffles, no atomics), and
 // each block adds them once into a float64 row in device memory; past three
-// lights (LANE_LS_MAX) the warps sum them per ray into a shared row, as
-// trace_whole_bwd.cu does. The 14 attribute cotangents: the lanes of a warp
-// that hit the same primitive find each other with one `__match_any_sync`
-// and sum their rows in a tree over their ranks in that group (log2 of the
-// largest group steps of 14 shuffles, none where every lane hit another
-// primitive), and each group's first lane adds the sums: a sphere's into a
+// lights (LANE_LS_MAX) the warps sum them per ray into a shared row
+// (trace_common.cuh's LaneLsSink, WarpLsSink and flush_ls, which
+// trace_whole_bwd.cu runs too). The 14 attribute cotangents: the lanes of a
+// warp that hit the same primitive find each other with one
+// `__match_any_sync` and sum their rows in a tree over their ranks in that
+// group (`group_sums`: log2 of the largest group steps of 14 shuffles, none
+// where every lane hit another primitive), and each group's first lane adds
+// the sums: a sphere's into a
 // float64 [n_prim, 14] table in device memory with atomicAdd, a wall's or a
 // box's into float32 rows in shared memory, which each block adds once into
 // the table. Walls and boxes are the rows every warp would hit: grid-1024's
@@ -75,33 +77,6 @@ struct BwdPlanes {
   float *cox, *coy, *coz, *cdx, *cdy, *cdz, *cw;
 };
 
-// Light and sky slots up to which each lane keeps its own sums in shared
-// memory (LaneLsSink: 32 KB a block; three lights), past which a warp sums
-// each ray's (WarpLsSink).
-constexpr int LANE_LS_MAX = 32;
-
-// level_adjoint's light and sky cotangents summed per lane over the grid
-// stride in shared memory (slot j of lane t at s[j * BLOCK + t]); the block
-// sums them once at its end.
-struct LaneLsSink {
-  float* s;
-  __device__ __forceinline__ void add(int j, float v) const { s[j * BLOCK + threadIdx.x] += v; }
-};
-
-// The lane of the n-th (from 0) set bit of m, which has more than n.
-__device__ __forceinline__ int nth_set(unsigned m, int n) {
-  int p = 0;
-#pragma unroll
-  for (int s = 16; s; s >>= 1)
-    if (__popc(m & ((1u << (p + s)) - 1u)) <= n) p += s;
-  return p;
-}
-
-// Shared floats of the light and sky sums.
-__host__ __device__ inline int ls_floats(int n_ls) {
-  return n_ls <= LANE_LS_MAX ? n_ls * BLOCK : n_ls;
-}
-
 template <bool LANE_LS>
 __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS) trace_level_bwd_kernel(
     Layout L, const float* __restrict__ g_tab, BwdPlanes p, double* __restrict__ ga,
@@ -109,12 +84,11 @@ __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS) trace_level_bwd_kernel(
   const int n_ls = 6 * (L.n_pt + L.n_sun) + 10;
   const int n_rows = 14 * (L.n_w + L.n_b);  // the walls' and boxes' sums
   extern __shared__ float sm[];
-  float* s_ls = sm + fold_floats(L);  // ls_floats(n_ls)
-  float* s_rows = s_ls + ls_floats(n_ls);
-  for (int j = threadIdx.x; j < ls_floats(n_ls) + n_rows; j += BLOCK) s_ls[j] = 0.0f;
+  float* s_ls = sm + fold_floats(L);  // ls_floats(n_ls, BLOCK)
+  float* s_rows = s_ls + ls_floats(n_ls, BLOCK);
+  for (int j = threadIdx.x; j < ls_floats(n_ls, BLOCK) + n_rows; j += BLOCK) s_ls[j] = 0.0f;
   const Tab T = tab_fold_shared(L, g_tab, sm);  // ends with __syncthreads
   const bool has_next = p.cnox != nullptr;
-  const int lane = threadIdx.x & 31;
 
   for (long long base = (long long)blockIdx.x * BLOCK; base < n;
        base += (long long)gridDim.x * BLOCK) {
@@ -147,25 +121,13 @@ __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS) trace_level_bwd_kernel(
       bool act;
       if constexpr (LANE_LS)
         act = level_adjoint(T, is_last, alive, o, d, w, t_sel, bi, car, cag, cab, co, cd, cw,
-                            c_o, c_d, c_w, ca, LaneLsSink{s_ls});
+                            c_o, c_d, c_w, ca, LaneLsSink<BLOCK>{s_ls});
       else
         act = level_adjoint(T, is_last, alive, o, d, w, t_sel, bi, car, cag, cab, co, cd, cw,
                             c_o, c_d, c_w, ca, WarpLsSink{s_ls});
 
       // ---- attribute cotangents: a tree sum per group of equal winners ----
-      const unsigned peers = __match_any_sync(FULL, act ? bi : -1);
-      const int rank = __popc(peers & ((1u << lane) - 1u)), size = __popc(peers);
-      const int widest = (int)__reduce_max_sync(FULL, act ? (unsigned)size : 1u);
-      for (int off = 1; off < widest; off <<= 1) {
-        const bool take = (rank & (2 * off - 1)) == 0 && rank + off < size;
-        const int src = take ? nth_set(peers, rank + off) : lane;
-#pragma unroll
-        for (int c = 0; c < 14; ++c) {
-          const float x = __shfl_sync(FULL, ca[c], src);
-          if (take) ca[c] += x;
-        }
-      }
-      if (act && rank == 0) {
+      if (group_sums(act, bi, ca)) {
         if (bi < L.n_s) {
 #pragma unroll
           for (int c = 0; c < 14; ++c) atomicAdd(&ga[14 * bi + c], (double)ca[c]);
@@ -188,16 +150,7 @@ __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS) trace_level_bwd_kernel(
   }
 
   __syncthreads();
-  if (LANE_LS) {
-    for (int j = threadIdx.x >> 5; j < n_ls; j += BLOCK / 32) {
-      float v = 0.0f;
-      for (int k = lane; k < BLOCK; k += 32) v += s_ls[j * BLOCK + k];
-      v = warp_sum(v);
-      if (lane == 0) atomicAdd(&gl[j], (double)v);
-    }
-  } else {
-    for (int j = threadIdx.x; j < n_ls; j += BLOCK) atomicAdd(&gl[j], (double)s_ls[j]);
-  }
+  flush_ls<BLOCK>(s_ls, n_ls, LANE_LS, gl);
   for (int j = threadIdx.x; j < n_rows; j += BLOCK)
     if (s_rows[j] != 0.0f) atomicAdd(&ga[14 * L.n_s + j], (double)s_rows[j]);
 }
@@ -228,10 +181,10 @@ int trace_level_bwd_launch(
               cox, coy, coz, cdx, cdy, cdz, cw};
   const int n_ls = 6 * (n_pt + n_sun) + 10;
   const size_t smem =
-      (size_t)(rt::fold_floats(L) + ls_floats(n_ls) + 14 * (n_w + n_b)) * sizeof(float);
+      (size_t)(rt::fold_floats(L) + rt::ls_floats(n_ls, BLOCK) + 14 * (n_w + n_b)) * sizeof(float);
   const int groups = (int)((n + BLOCK - 1) / BLOCK < (1 << 30) ? (n + BLOCK - 1) / BLOCK
                                                                : (1 << 30));
-  const bool lane_ls = n_ls <= LANE_LS_MAX;
+  const bool lane_ls = n_ls <= rt::LANE_LS_MAX;
   auto kernel = lane_ls ? trace_level_bwd_kernel<true> : trace_level_bwd_kernel<false>;
   int n_blocks = 0;
   cudaError_t err = rt::persistent_grid(kernel, BLOCK, smem, groups, &n_blocks);

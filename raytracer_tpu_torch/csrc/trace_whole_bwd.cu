@@ -8,36 +8,39 @@
 // VMEM, scatters the attribute cotangents into per-tile [rows, 16] blocks and
 // reduces the light and sky cotangents per tile.
 //
-// Design: one thread per ray, a grid-stride loop over the rays in a grid of
-// at most 8 blocks per SM (the wrapper sizes it). The packed scene table of
-// trace_whole.cu is copied into shared memory at block start. For k = depth
-// .. 0 a thread reads level k's residuals (input rays, throughput, t, index),
-// regathers the winner by index, recomputes its record (t, hit point,
-// normal) and its shading, and runs their adjoint, derived by hand from
-// `_level_math` in ops/cuda_fold.py (CUDA has no autodiff): the cotangents
-// of the level's increment (the image cotangent) and of its outputs (the
-// rays and throughput that level k+1 read, carried in registers) give those
-// of its inputs, of the 14 gathered attributes and of the light and sky
-// scalars. A lane whose throughput is 0 at a level is dead there: it skips
-// the level, so its cotangents pass through unchanged and it adds nothing
-// (the forward's per-lane skip). A warp whose lanes are all dead skips the
+// Design: one thread per ray, a grid-stride loop over the rays in as many
+// blocks as fit on the card at once (trace_common.cuh's `persistent_grid`).
+// The table without its materials is copied into shared memory once a block
+// (`tab_fold_shared`, as trace_level_bwd.cu); the winner's materials are
+// read from device memory. For k = depth .. 0 a thread reads level k's
+// residuals (input rays, throughput, t, index), regathers the winner by
+// index and runs trace_common.cuh's `level_adjoint`, the adjoint of
+// `_level_math` derived by hand that the per-level backward
+// (trace_level_bwd.cu) shares: the cotangents of the level's increment (the
+// image cotangent) and of its outputs (the rays and throughput that level
+// k+1 read, carried in registers) give those of its inputs, of the 14
+// gathered attributes and of the light and sky scalars. A lane whose
+// throughput is 0 at a level is dead there: its cotangents pass through
+// unchanged and it adds nothing; a warp whose lanes are all dead skips the
 // level. The 7 cotangent planes are written once at the end.
 //
-// The adjoint is trace_common.cuh's `level_adjoint`, which the per-level
-// backward (trace_level_bwd.cu) shares; its derivative rules are stated
-// there.
-//
-// Parameter cotangents: per level, a warp sums the 14 attribute cotangents
-// of the lanes that hit the same primitive with shuffles (one group per
-// distinct index, in a fixed order), and its lane 0 adds the sums into the
-// block's shared [n_prim, 14] accumulator with atomicAdd; the light and sky
-// cotangents are summed per warp the same way into a shared [n_ls] row. So
-// the order of the adds inside a block, one per warp, varies from run to
-// run: the table cotangents may differ in their last bits between runs (a
-// relative 1e-7 of the sums, far inside the 1e-3 tolerance of the checks).
-// Each block writes its partial sums once, to [n_blocks, n_prim, 14] and
-// [n_blocks, n_ls]; the wrapper sums them over blocks (torch.sum, a fixed
-// order), as the JAX wrapper sums its per-tile blocks.
+// Sums over lanes, as trace_level_bwd.cu sums them: each lane keeps its
+// light and sky cotangents in shared slots of its own over everything it
+// runs (LaneLsSink: no shuffles, no atomics), and each block adds them once
+// into a float64 row in device memory; past three lights (LANE_LS_MAX) the
+// warps sum them per ray into a shared row (WarpLsSink). The 14 attribute
+// cotangents: the lanes of a warp that hit the same primitive find each
+// other with one `__match_any_sync` and sum their rows in a tree
+// (`group_sums`), and each group's first lane adds the sums into float32
+// rows in shared memory for the hot rows, which each block adds once into a
+// float64 [n_prim, 14] table in device memory, and straight into that table
+// with float64 atomics for the others. The hot rows are the walls and boxes,
+// and the spheres too in scenes of at most SHARED_SPHERES_MAX of them:
+// sprint3's one sphere wins most camera rays, where a grid-64 or grid-768
+// sphere row is cold and its float64 atomics rarely meet. The float adds
+// come in an order that varies between runs; their rounding (float32 over a
+// block's lanes, ~1e-6 of the sums) stays within the tolerances the checks
+// hold them to.
 //
 // Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s float32): at 1920x1080 and
 // depth 3 the kernel reads at most 9 residual planes per level (input rays,
@@ -54,12 +57,9 @@
 // sprint3 frame, 4 us, against 190 MB of its alive lanes' planes, 57 us.
 // So the step is bound by its bytes. The design reads each residual plane
 // once (an alive lane's planes only), keeps the cotangent chain in
-// registers and writes each output plane once; the partial sums are a few
-// MB at most. The replay recomputes the record and the shading instead of
-// saving them, which would cost more bytes than the arithmetic costs time.
-// The warp sums cost ~5 shuffles per summed value and warp; the lanes of a
-// warp that hit different kinds of primitive run their record adjoints one
-// after the other.
+// registers and writes each output plane once. The replay recomputes the
+// record and the shading instead of saving them, which would cost more
+// bytes than the arithmetic costs time.
 //
 // Build with -fmad=false and without fast math, as trace_whole.cu.
 
@@ -70,30 +70,44 @@ namespace {
 using namespace rt;
 
 constexpr int BLOCK = 256;
+// Blocks an SM that ptxas fits the registers to (by measurement, PERF.md).
+constexpr int MIN_BLOCKS = 2;
+// Scenes of at most this many spheres (one chunk) sum their sphere rows per
+// block in shared memory, as walls and boxes; larger ones add them into the
+// float64 table with atomics (by measurement on an NVIDIA H100 80GB HBM3 at
+// 700 W, PERF.md: the shared rows 4% faster than atomics at one sphere, the
+// atomics 2% faster at 64).
+constexpr int SHARED_SPHERES_MAX = 16;
 
-__global__ void __launch_bounds__(BLOCK) trace_whole_bwd_kernel(
-    Layout L, const float* __restrict__ g_tab,
-    const float* __restrict__ ox0, const float* __restrict__ oy0,
-    const float* __restrict__ oz0, const float* __restrict__ dx0,
-    const float* __restrict__ dy0, const float* __restrict__ dz0,
-    const float* __restrict__ w0, const float* __restrict__ res_p,
-    const float* __restrict__ t_p, const int* __restrict__ i_p,
-    const float* __restrict__ car_p, const float* __restrict__ cag_p,
-    const float* __restrict__ cab_p, float* __restrict__ cox_p,
-    float* __restrict__ coy_p, float* __restrict__ coz_p,
-    float* __restrict__ cdx_p, float* __restrict__ cdy_p,
-    float* __restrict__ cdz_p, float* __restrict__ cw_p,
-    float* __restrict__ pg_p, float* __restrict__ pl_p, long long n) {
-  const int n_prim = L.n_s + L.n_w + L.n_b;
+// The first primitive whose attribute row is summed in shared memory.
+__host__ __device__ inline int shared_row0(const Layout& L) {
+  return L.n_s <= SHARED_SPHERES_MAX ? 0 : L.n_s;
+}
+
+// The planes of one launch: level 0's input rays and throughput (each [n]),
+// the residuals of levels 1..depth [depth][7][n], the selections t and
+// index [depth + 1][n], the image cotangent [3][n] and the 7 cotangent
+// planes written.
+struct BwdPlanes {
+  RayPlanes in;
+  const float *res, *t;
+  const int* i;
+  const float *car, *cag, *cab;
+  float *cox, *coy, *coz, *cdx, *cdy, *cdz, *cw;
+};
+
+template <bool LANE_LS>
+__global__ void __launch_bounds__(BLOCK, MIN_BLOCKS) trace_whole_bwd_kernel(
+    Layout L, const float* __restrict__ g_tab, BwdPlanes p, double* __restrict__ ga,
+    double* __restrict__ gl, long long n) {
   const int n_ls = 6 * (L.n_pt + L.n_sun) + 10;
-  extern __shared__ float smem[];
-  float* tab = smem;
-  float* s_pg = smem + L.n_tab;        // [n_prim][14] attribute cotangents
-  float* s_ls = s_pg + 14 * n_prim;    // [n_ls] light and sky cotangents
-  for (int j = threadIdx.x; j < L.n_tab; j += BLOCK) tab[j] = g_tab[j];
-  for (int j = threadIdx.x; j < 14 * n_prim + n_ls; j += BLOCK) s_pg[j] = 0.0f;
-  __syncthreads();
-  const Tab T = tab_whole(L, tab);
+  const int row0 = shared_row0(L);
+  const int n_rows = 14 * (L.n_s + L.n_w + L.n_b - row0);  // the hot rows' sums
+  extern __shared__ float sm[];
+  float* s_ls = sm + fold_floats(L);  // ls_floats(n_ls, BLOCK)
+  float* s_rows = s_ls + ls_floats(n_ls, BLOCK);
+  for (int j = threadIdx.x; j < ls_floats(n_ls, BLOCK) + n_rows; j += BLOCK) s_ls[j] = 0.0f;
+  const Tab T = tab_fold_shared(L, g_tab, sm);  // ends with __syncthreads
 
   for (long long base = (long long)blockIdx.x * BLOCK; base < n;
        base += (long long)gridDim.x * BLOCK) {
@@ -102,13 +116,13 @@ __global__ void __launch_bounds__(BLOCK) trace_whole_bwd_kernel(
     // Cotangents of the rays and throughput that level k+1 read.
     float co[3] = {0.0f, 0.0f, 0.0f}, cd[3] = {0.0f, 0.0f, 0.0f}, cw = 0.0f;
     float car = 0.0f, cag = 0.0f, cab = 0.0f;
-    if (valid) { car = car_p[r]; cag = cag_p[r]; cab = cab_p[r]; }
+    if (valid) { car = p.car[r]; cag = p.cag[r]; cab = p.cab[r]; }
 
     for (int k = L.depth; k >= 0; --k) {
       const long long plane = (long long)k * n + r;
-      const float* lv = k ? res_p + (long long)(k - 1) * 7 * n + r : nullptr;
+      const float* lv = k ? p.res + (long long)(k - 1) * 7 * n + r : nullptr;
       float w = 0.0f;
-      if (valid) w = k ? lv[6 * n] : w0[r];
+      if (valid) w = k ? lv[6 * n] : p.in.w[r];
       const bool alive = w > 0.0f;
       if (!__any_sync(FULL, alive)) continue;
 
@@ -120,26 +134,31 @@ __global__ void __launch_bounds__(BLOCK) trace_whole_bwd_kernel(
           o[0] = lv[0]; o[1] = lv[n]; o[2] = lv[2 * n];
           d[0] = lv[3 * n]; d[1] = lv[4 * n]; d[2] = lv[5 * n];
         } else {
-          o[0] = ox0[r]; o[1] = oy0[r]; o[2] = oz0[r];
-          d[0] = dx0[r]; d[1] = dy0[r]; d[2] = dz0[r];
+          o[0] = p.in.ox[r]; o[1] = p.in.oy[r]; o[2] = p.in.oz[r];
+          d[0] = p.in.dx[r]; d[1] = p.in.dy[r]; d[2] = p.in.dz[r];
         }
-        t_sel = t_p[plane];
-        bi = i_p[plane];
+        t_sel = p.t[plane];
+        bi = p.i[plane];
       }
       float c_o[3], c_d[3], c_w, ca[14];
-      const bool act = level_adjoint(T, k == L.depth, alive, o, d, w, t_sel, bi, car, cag,
-                                     cab, co, cd, cw, c_o, c_d, c_w, ca, s_ls);
+      bool act;
+      if constexpr (LANE_LS)
+        act = level_adjoint(T, k == L.depth, alive, o, d, w, t_sel, bi, car, cag, cab, co, cd,
+                            cw, c_o, c_d, c_w, ca, LaneLsSink<BLOCK>{s_ls});
+      else
+        act = level_adjoint(T, k == L.depth, alive, o, d, w, t_sel, bi, car, cag, cab, co, cd,
+                            cw, c_o, c_d, c_w, ca, WarpLsSink{s_ls});
 
-      // ---- attribute cotangents: one warp sum per distinct winner ----
-      unsigned pending = __ballot_sync(FULL, act);
-      while (pending) {
-        const int key = __shfl_sync(FULL, bi, __ffs(pending) - 1);
-        const bool mine = act && bi == key;
-        pending &= ~__ballot_sync(FULL, mine);
+      // ---- attribute cotangents: a tree sum per group of equal winners ----
+      if (group_sums(act, bi, ca)) {
+        if (bi < row0) {
 #pragma unroll
-        for (int c = 0; c < 14; ++c) warp_add(&s_pg[14 * key + c], mine ? ca[c] : 0.0f);
+          for (int c = 0; c < 14; ++c) atomicAdd(&ga[14 * bi + c], (double)ca[c]);
+        } else {
+#pragma unroll
+          for (int c = 0; c < 14; ++c) atomicAdd(&s_rows[14 * (bi - row0) + c], ca[c]);
+        }
       }
-
       if (alive) {
 #pragma unroll
         for (int j = 0; j < 3; ++j) { co[j] = c_o[j]; cd[j] = c_d[j]; }
@@ -148,49 +167,51 @@ __global__ void __launch_bounds__(BLOCK) trace_whole_bwd_kernel(
     }
 
     if (valid) {
-      cox_p[r] = co[0]; coy_p[r] = co[1]; coz_p[r] = co[2];
-      cdx_p[r] = cd[0]; cdy_p[r] = cd[1]; cdz_p[r] = cd[2];
-      cw_p[r] = cw;
+      p.cox[r] = co[0]; p.coy[r] = co[1]; p.coz[r] = co[2];
+      p.cdx[r] = cd[0]; p.cdy[r] = cd[1]; p.cdz[r] = cd[2];
+      p.cw[r] = cw;
     }
   }
 
   __syncthreads();
-  float* pg = pg_p + (long long)blockIdx.x * 14 * n_prim;
-  for (int j = threadIdx.x; j < 14 * n_prim; j += BLOCK) pg[j] = s_pg[j];
-  float* pl = pl_p + (long long)blockIdx.x * n_ls;
-  for (int j = threadIdx.x; j < n_ls; j += BLOCK) pl[j] = s_ls[j];
+  flush_ls<BLOCK>(s_ls, n_ls, LANE_LS, gl);
+  for (int j = threadIdx.x; j < n_rows; j += BLOCK)
+    if (s_rows[j] != 0.0f) atomicAdd(&ga[14 * row0 + j], (double)s_rows[j]);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launch `n_blocks` blocks on `stream`. Level k >= 1's input rays and
-// throughput are `res[k - 1]` (7 planes), level 0's the separate planes;
-// `t` and `i` hold every level's selections. `pg` receives [n_blocks,
-// n_prim, 14] and `pl` [n_blocks, n_ls] partial sums. Returns the CUDA error
-// of the launch (0 on success).
+// Launch on `stream` over the n lanes, in as many blocks as fit on the card.
+// Level k >= 1's input rays and throughput are `res[k - 1]` (7 planes),
+// level 0's the separate planes; `t` and `i` hold every level's selections.
+// The table cotangents are added into `ga` [n_prim, 14] and `gl` [n_ls],
+// float64 (zeroed by the caller). Returns the CUDA error of the launch (0
+// on success).
 int trace_whole_bwd_launch(
-    const float* tab, int n_tab, int n_s, int unroll, int n_w, int n_b,
-    int n_pt, int n_sun, int gate, int depth, const float* ox,
-    const float* oy, const float* oz, const float* dx, const float* dy,
-    const float* dz, const float* w, const float* res, const float* t,
-    const int* i, const float* car, const float* cag, const float* cab,
-    float* cox, float* coy, float* coz, float* cdx, float* cdy, float* cdz,
-    float* cw, float* pg, float* pl, long long n, int n_blocks,
-    void* stream) {
+    const float* tab, int n_tab, int n_s, int unroll, int n_w, int n_b, int n_pt, int n_sun,
+    int gate, int depth, const float* ox, const float* oy, const float* oz, const float* dx,
+    const float* dy, const float* dz, const float* w, const float* res, const float* t,
+    const int* i, const float* car, const float* cag, const float* cab, float* cox,
+    float* coy, float* coz, float* cdx, float* cdy, float* cdz, float* cw, double* ga,
+    double* gl, long long n, void* stream) {
   rt::Layout L = rt::make_layout(n_s, unroll, n_w, n_b, n_pt, n_sun, gate, depth);
-  if (L.n_tab != n_tab || n <= 0 || n_blocks <= 0) return (int)cudaErrorInvalidValue;
-  const int n_prim = n_s + n_w + n_b, n_ls = 6 * (n_pt + n_sun) + 10;
-  const size_t smem = (size_t)(n_tab + 14 * n_prim + n_ls) * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        trace_whole_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  trace_whole_bwd_kernel<<<n_blocks, BLOCK, smem, (cudaStream_t)stream>>>(
-      L, tab, ox, oy, oz, dx, dy, dz, w, res, t, i, car, cag, cab, cox, coy,
-      coz, cdx, cdy, cdz, cw, pg, pl, n);
+  if (L.n_tab != n_tab || n <= 0 || (depth > 0 && !res)) return (int)cudaErrorInvalidValue;
+  BwdPlanes p{{ox, oy, oz, dx, dy, dz, w}, res, t, i, car, cag, cab,
+              cox, coy, coz, cdx, cdy, cdz, cw};
+  const int n_ls = 6 * (n_pt + n_sun) + 10;
+  const int n_rows = 14 * (n_s + n_w + n_b - shared_row0(L));
+  const size_t smem =
+      (size_t)(rt::fold_floats(L) + rt::ls_floats(n_ls, BLOCK) + n_rows) * sizeof(float);
+  const int groups = (int)((n + BLOCK - 1) / BLOCK < (1 << 30) ? (n + BLOCK - 1) / BLOCK
+                                                               : (1 << 30));
+  const bool lane_ls = n_ls <= rt::LANE_LS_MAX;
+  auto kernel = lane_ls ? trace_whole_bwd_kernel<true> : trace_whole_bwd_kernel<false>;
+  int n_blocks = 0;
+  cudaError_t err = rt::persistent_grid(kernel, BLOCK, smem, groups, &n_blocks);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<n_blocks, BLOCK, smem, (cudaStream_t)stream>>>(L, tab, p, ga, gl, n);
   return (int)cudaGetLastError();
 }
 

@@ -1,16 +1,22 @@
 """The whole-trace kernel: every bounce level of a ray tile in one launch.
 
 ``trace_whole`` launches csrc/trace_whole.cu, a CUDA kernel with one thread
-per ray. For each level the thread folds the closest hit over walls, boxes
-and sphere chunks (ties broken on the global index), regathers the winner's
-attributes, shades it with Blinn-Phong point and sun lights (or the sky on a
-miss), accumulates, and reflects. ``trace_whole_reference`` is its plain
-PyTorch version: the same arithmetic, op for op, vectorised over primitives.
+per ray, its warps 4 x 8 pixels of a tile where the frame and the scene call
+for it (``whole_grid``). For each level the thread folds the closest hit over
+walls, boxes and sphere chunks (ties broken on the global index; a warp
+folds a chunk that few of its lanes reach together), regathers the
+winner's attributes, shades it with Blinn-Phong point and sun lights (or the
+sky on a miss), accumulates, and reflects. ``trace_whole_reference`` is its
+plain PyTorch version: the same arithmetic, op for op, vectorised over
+primitives; ``whole_pair_reference`` mirrors the kernel's fold route by
+route in its lane layout, with the same outputs.
 
 The scene reaches the kernel as one packed float32 table (``FusedTables``),
-copied into shared memory at block start. Its layout, column by column
-(each column holds one value per item of its group), is ``_LAYOUT`` below
-and is mirrored by ``make_layout`` in the CUDA source.
+copied into shared memory by each block (for most scenes the spheres as
+float4 and the materials left in device memory: ``whole_smem_bytes``). Its
+layout, column
+by column (each column holds one value per item of its group), is
+``_LAYOUT`` below and is mirrored by ``make_layout`` in the CUDA source.
 
 A lane whose throughput is 0 at a level is dead there: the kernel skips it,
 and both versions write ``(MISS_T, -1)`` as its (t, index) and leave its
@@ -30,7 +36,6 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import functools
 
 import torch
 
@@ -52,23 +57,42 @@ __all__ = [
     "attribute_tables",
     "Residuals",
     "trace_whole_reference",
+    "WHOLE_TILE",
+    "whole_grid",
+    "whole_pair_reference",
     "trace_whole",
+    "whole_smem_bytes",
+    "whole_bwd_smem_bytes",
     "trace_level_bwd_reference",
     "trace_whole_bwd_reference",
     "trace_whole_bwd",
 ]
 
 # The fused class: scenes of at most 24 sphere chunks traced to at most 10
-# bounces (the reference renderer's own maximum recursion depth), whose table
-# fits the shared memory a block gets by default. The JAX package stops at 4
-# chunks; on the H100 the whole-trace kernels beat the per-level chain at
-# every chunk count measured, 4 to 24 (grids of 64 to 768 spheres at
-# 1920x1080 d3, forward and backward; chip_smoke.py's `whole_vs_levels`,
-# PERF.md). Past that, only the 1024-sphere grid is measured, and its table
-# no longer fits.
+# bounces (the reference renderer's own maximum recursion depth), whose
+# packed table fits the shared memory a block gets by default. The JAX
+# package stops at 4 chunks. With both routes redesigned, the whole-trace
+# kernels beat the per-level chain's at every chunk count of the class,
+# forward and backward (grids of 64 to 768 spheres, 4 to 24 chunks, at
+# 1920x1080 d3; grid-768 1.52 against 2.13 ms of kernels forward, 0.65
+# against 0.72 backward, on an NVIDIA H100 80GB HBM3 at 700 W;
+# chip_smoke.py's `whole_vs_levels`, PERF.md). Whether the class should
+# take larger tables (grid-1024's no longer fits) is open (ROADMAP).
 FUSED_MAX_CHUNKS = 24
 FUSED_MAX_DEPTH = 10
 _SMEM_LIMIT = 48 * 1024  # dynamic shared memory a block gets by default
+
+# Pixels of a block's tile in the whole-trace forward, (rows, cols), where
+# the frame and the scene call for it (``whole_grid``): warps of 4 x 8
+# pixels. Picked by measurement on the H100 (PERF.md).
+WHOLE_TILE = (32, 8)
+_WHOLE_BLOCK = 256  # threads of a block of both whole-trace kernels (csrc BLOCK)
+_SMEM_MAX = 232448  # dynamic shared memory a block can have on the H100
+# Mirrors of csrc: the light and sky slots each lane of the backward keeps
+# (trace_common.cuh's LANE_LS_MAX), and the sphere count up to which it sums
+# sphere rows in shared memory (trace_whole_bwd.cu's SHARED_SPHERES_MAX).
+_LANE_LS_MAX = 32
+_SHARED_SPHERES_MAX = 16
 
 _AABB_PAD = 1e-3  # chunk-box inflation absorbing float32 rounding
 _GATE_PAD = 1e-2  # bounding-sphere inflation for the tube gate
@@ -728,6 +752,89 @@ def trace_whole_reference(tables: FusedTables, o: V3, d: V3, w: torch.Tensor,
     return out
 
 
+def whole_grid(shape, tile=None, tables: FusedTables | None = None) -> tuple:
+    """``((H, W), (rows, cols))``: the ``[H, W]`` view in which the
+    whole-trace kernels take planes of ``shape``, and the pixels of a
+    block's tile (a power of two of columns; a warp is 32 consecutive
+    threads of a tile). ``WHOLE_TILE`` over ``shape``'s last dimension
+    where its ragged tiles idle at most 1/16 of the lanes (and there are at
+    most 65535 rows of tiles, the launch grid's y), else (1, 256) strips
+    over the flat planes (1-D, one-row and narrow planes). The strips too
+    for ``tables`` whose chunks hold fewer than ``PAIR_MIN_UNROLL`` spheres
+    (sprint3, the demo): their lanes fold alone, and whole rows write
+    their planes faster (PERF.md). ``tile`` forces a tile; (1, 256) is the
+    flat layout."""
+    from raytracer_tpu_torch.ops import cuda_level
+
+    n = 1
+    for s in shape:
+        n *= int(s)
+    if tile is None:
+        lane_route = tables is not None and tables.counts["unroll"] < cuda_level.PAIR_MIN_UNROLL
+        tile = (1, _WHOLE_BLOCK) if lane_route else WHOLE_TILE
+    tile = tuple(tile)
+    if tile != (1, _WHOLE_BLOCK) and len(shape) >= 2 and shape[-1]:
+        tr, tc = tile
+        w = int(shape[-1])
+        h = n // w
+        th = -(-h // tr)
+        if h > 1 and th <= 65535 and th * tr * (-(-w // tc) * tc) - n <= n // 16:
+            return (h, w), (tr, tc)
+    return (1, n), (1, _WHOLE_BLOCK)
+
+
+def whole_pair_reference(tables: FusedTables, o: V3, d: V3, w: torch.Tensor, depth: int,
+                         emit_res: bool = False, k_min: int | None = None, tile=None):
+    """Plain mirror of ``trace_whole`` as csrc/trace_whole.cu runs it: the
+    outputs of ``trace_whole_reference`` (equal to them bit for bit), and a
+    list with each level's fold work by route.
+
+    Each level folds through ``cuda_level.pair_fold`` over the identity
+    chunk list in the kernel's lane layout (``whole_grid`` of the planes
+    and ``tables``, or ``tile``):
+    a warp's lanes gate each chunk against their segments, and where fewer
+    than ``k_min`` (default ``cuda_level.PAIR_MIN_LANES``) of them pass,
+    the warp folds it for them one ray at a time; then the regather,
+    ``_level_math`` and the masks of dead lanes, as ``trace_whole_reference``.
+    """
+    from raytracer_tpu_torch.ops import cuda_level
+
+    if k_min is None:
+        k_min = cuda_level.PAIR_MIN_LANES
+    t, counts = tables.cols, tables.counts
+    shape = w.shape
+    (h, wd), tile = whole_grid(shape, tile, tables)
+    o, d = V3(*(c.reshape(h, wd) for c in o)), V3(*(c.reshape(h, wd) for c in d))
+    w = w.reshape(h, wd)
+    zero = torch.zeros_like(w)
+    acc = V3(zero, zero, zero)
+    ts, idxs, res, works = [], [], [], []
+    with torch.no_grad():
+        for k in range(depth + 1):
+            if emit_res and k >= 1:
+                res.append(torch.stack([*o, *d, w]))
+            alive = w > 0.0
+            bt, bi, work = cuda_level.pair_fold(tables, None, o, d, w, k_min, tile)
+            works.append(work)
+            hit = bt < MISS_T
+            attrs = _gather(_attr_columns(t, counts), bi, hit)
+            t_k, inc, w_next, o_next, d_next = _level_math(
+                attrs, o, d, w, bt, hit, *_kinds(bi, hit, counts), _ls_vector(t), counts,
+                k == depth,
+            )
+            ts.append(torch.where(alive, t_k, MISS_T))
+            idxs.append(torch.where(alive, bi, -1))
+            acc = acc + V3.where(alive, inc, V3(zero, zero, zero))
+            w = torch.where(alive, w_next, w)
+            o, d = V3.where(alive, o_next, o), V3.where(alive, d_next, d)
+    out = (V3(*(c.reshape(shape) for c in acc)), torch.stack(ts).reshape(depth + 1, *shape),
+           torch.stack(idxs).reshape(depth + 1, *shape))
+    if emit_res:
+        out += (torch.stack(res).reshape(depth, 7, *shape) if res
+                else zero.new_zeros((0, 7, *shape)),)
+    return out, works
+
+
 @dataclasses.dataclass(frozen=True)
 class Residuals:
     """What the backward needs of a forward trace: level 0's input rays and
@@ -855,16 +962,45 @@ def _check_table(tables: FusedTables, depth: int, dev, name: str):
 
 
 def _check_kernel_class(tables: FusedTables, depth: int, dev, name: str):
-    """What both whole-trace kernels need on CUDA: the whole table fits the
-    shared memory a block gets by default (they copy it there). Any chunk
-    count and depth run; ``in_fused_class`` is where ``trace_soa`` sends
-    them."""
+    """What both whole-trace kernels need on CUDA: their shared tables fit
+    the shared memory a block can have (``whole_smem_bytes``,
+    ``whole_bwd_smem_bytes``). Any chunk count and depth run;
+    ``in_fused_class`` is where ``trace_soa`` sends them."""
     _check_table(tables, depth, dev, name)
-    if tables.smem_bytes > _SMEM_LIMIT:
+    need = max(whole_smem_bytes(tables), whole_bwd_smem_bytes(tables))
+    if need > _SMEM_MAX:
         raise ValueError(
-            f"scene tables ({tables.smem_bytes} bytes) exceed the "
-            f"{_SMEM_LIMIT} bytes of shared memory {name} copies them into"
+            f"scene tables ({need} bytes of shared memory) exceed the {_SMEM_MAX} "
+            f"bytes a block of {name} can have"
         )
+
+
+def whole_smem_bytes(tables: FusedTables) -> int:
+    """Dynamic shared bytes of a ``trace_whole`` launch: the spheres as
+    float4, then the table without its spheres and materials (csrc
+    trace_common.cuh's ``tab_level_shared``); for scenes of one-sphere
+    chunks (the kernel's lane route) the packed table as it is."""
+    from raytracer_tpu_torch.ops import cuda_level
+
+    c = tables.counts
+    if c["unroll"] < cuda_level.PAIR_MIN_UNROLL:
+        return tables.smem_bytes
+    n_prim = c["n_s"] + c["n_w"] + c["n_b"]
+    return 4 * (tables.packed.numel() - 8 * n_prim - c["n_s"])
+
+
+def whole_bwd_smem_bytes(tables: FusedTables) -> int:
+    """Dynamic shared bytes of a ``trace_whole_bwd`` launch: the table
+    without its materials, the light and sky sums (each lane's, for at most
+    ``_LANE_LS_MAX`` of them; else one row), and the float32 sums of the
+    hot attribute rows: walls and boxes, and spheres in scenes of at most
+    ``_SHARED_SPHERES_MAX`` (csrc/trace_whole_bwd.cu)."""
+    c = tables.counts
+    n_prim = c["n_s"] + c["n_w"] + c["n_b"]
+    n_ls = 6 * (c["n_pt"] + c["n_sun"]) + 10
+    ls = n_ls * _WHOLE_BLOCK if n_ls <= _LANE_LS_MAX else n_ls
+    rows = n_prim - (0 if c["n_s"] <= _SHARED_SPHERES_MAX else c["n_s"])
+    return 4 * (tables.packed.numel() - 8 * n_prim + ls + 14 * rows)
 
 
 def _table_args(tables: FusedTables, depth: int) -> tuple:
@@ -894,7 +1030,8 @@ def trace_whole(tables: FusedTables, o: V3, d: V3, w: torch.Tensor, depth: int,
     Inputs: ray origins ``o``, unit directions ``d`` and throughput ``w``,
     seven contiguous float32 planes of one shape on one device. On CPU
     tensors this is ``trace_whole_reference``; on CUDA tensors it launches
-    the kernel on the current stream, or raises.
+    the kernel on the current stream, in the lane layout of
+    ``whole_grid``, or raises.
     """
     dev, shape = w.device, w.shape
     _check_planes((*o, *d, w), shape, dev)
@@ -905,15 +1042,15 @@ def trace_whole(tables: FusedTables, o: V3, d: V3, w: torch.Tensor, depth: int,
     t_out = torch.empty((depth + 1, *shape), dtype=torch.float32, device=dev)
     i_out = torch.empty((depth + 1, *shape), dtype=torch.int32, device=dev)
     res = torch.empty((depth, 7, *shape), dtype=torch.float32, device=dev) if emit_res else None
-    n = w.numel()
-    if n:
+    if w.numel():
+        (h, wd), (tr, tc) = whole_grid(shape, tables=tables)
         lib = _build.load("trace_whole", _SIGNATURES)
         err = lib.trace_whole_launch(
             *_table_args(tables, depth), int(emit_res),
             *(p.data_ptr() for p in (*o, *d, w)),
             *(p.data_ptr() for p in rgb), t_out.data_ptr(), i_out.data_ptr(),
             res.data_ptr() if emit_res else None,
-            n, torch.cuda.current_stream(dev).cuda_stream,
+            h, wd, tr, tc, torch.cuda.current_stream(dev).cuda_stream,
         )
         _raise_on(err, lib, "trace_whole")
         trace_whole.launches += 1
@@ -934,8 +1071,8 @@ def trace_whole_bwd(tables: FusedTables, attrs: torch.Tensor, ls: torch.Tensor,
     On CPU tensors this is ``trace_whole_bwd_reference``; on CUDA tensors
     it launches csrc/trace_whole_bwd.cu on the current stream, or raises.
     The kernel reads the scene from ``tables.packed``; ``attrs`` and ``ls``
-    only fix the shapes of its outputs. Each block of the kernel writes
-    its own partial sums of the table cotangents, summed here.
+    only fix the shapes of its outputs. The kernel adds the table
+    cotangents into float64 tables, returned as float32.
     """
     dev, shape = levels.w.device, levels.w.shape
     n_prim = tables.counts["n_s"] + tables.counts["n_w"] + tables.counts["n_b"]
@@ -951,38 +1088,24 @@ def trace_whole_bwd(tables: FusedTables, attrs: torch.Tensor, ls: torch.Tensor,
         return trace_whole_bwd_reference(tables, attrs, ls, levels, ct_acc, depth)
     _check_kernel_class(tables, depth, dev, name)
     cts = [torch.empty(shape, dtype=torch.float32, device=dev) for _ in range(7)]
+    ga = torch.zeros((n_prim, 14), dtype=torch.float64, device=dev)
+    gl = torch.zeros((n_ls,), dtype=torch.float64, device=dev)
     n = levels.w.numel()
-    if not n:
-        return V3(*cts[:3]), V3(*cts[3:6]), cts[6], torch.zeros_like(attrs), torch.zeros_like(ls)
-    lib = _build.load(name, _BWD_SIGNATURES)
-    n_blocks = min(-(-n // _BWD_BLOCK), _BWD_BLOCKS_PER_SM * _sm_count(dev))
-    pg = torch.empty((n_blocks, n_prim, 14), dtype=torch.float32, device=dev)
-    pl = torch.empty((n_blocks, n_ls), dtype=torch.float32, device=dev)
-    err = lib.trace_whole_bwd_launch(
-        *_table_args(tables, depth),
-        *(p.data_ptr() for p in (*levels.o, *levels.d, levels.w)),
-        levels.res.data_ptr(), levels.t.data_ptr(), levels.i.data_ptr(),
-        *(p.data_ptr() for p in ct_acc), *(p.data_ptr() for p in cts),
-        pg.data_ptr(), pl.data_ptr(), n, n_blocks,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _raise_on(err, lib, name)
-    trace_whole_bwd.launches += 1
-    return V3(*cts[:3]), V3(*cts[3:6]), cts[6], pg.sum(dim=0), pl.sum(dim=0)
+    if n:
+        lib = _build.load(name, _BWD_SIGNATURES)
+        err = lib.trace_whole_bwd_launch(
+            *_table_args(tables, depth),
+            *(p.data_ptr() for p in (*levels.o, *levels.d, levels.w)),
+            levels.res.data_ptr(), levels.t.data_ptr(), levels.i.data_ptr(),
+            *(p.data_ptr() for p in ct_acc), *(p.data_ptr() for p in cts),
+            ga.data_ptr(), gl.data_ptr(), n, torch.cuda.current_stream(dev).cuda_stream,
+        )
+        _raise_on(err, lib, name)
+        trace_whole_bwd.launches += 1
+    return V3(*cts[:3]), V3(*cts[3:6]), cts[6], ga.float(), gl.float()
 
 
 trace_whole_bwd.launches = 0
-
-# The backward kernel's block size (BLOCK in csrc/trace_whole_bwd.cu) and
-# its grid cap: a grid-stride loop over the rays in at most this many
-# blocks per SM, which bounds the per-block partial sums it writes.
-_BWD_BLOCK = 256
-_BWD_BLOCKS_PER_SM = 8
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(dev) -> int:
-    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 # C signatures of the exported functions of csrc/trace_whole.cu and
 # csrc/trace_whole_bwd.cu.
@@ -991,15 +1114,14 @@ _SIGNATURES = {
     "trace_whole_launch": (
         ctypes.c_int,
         _TABLE_ARGTYPES + [ctypes.c_int] + [ctypes.c_void_p] * 13
-        + [ctypes.c_longlong, ctypes.c_void_p],
+        + [ctypes.c_int] * 4 + [ctypes.c_void_p],
     ),
     "trace_whole_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
 _BWD_SIGNATURES = {
     "trace_whole_bwd_launch": (
         ctypes.c_int,
-        _TABLE_ARGTYPES + [ctypes.c_void_p] * 22
-        + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
+        _TABLE_ARGTYPES + [ctypes.c_void_p] * 22 + [ctypes.c_longlong, ctypes.c_void_p],
     ),
     "trace_whole_bwd_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }

@@ -48,6 +48,7 @@ from raytracer_tpu_torch.core.v3 import V3
 from raytracer_tpu_torch.ops import _build
 from raytracer_tpu_torch.ops.cuda_fold import (
     _AABB_PAD,
+    _LANE_LS_MAX,
     GATE_AABB,
     FusedTables,
     Residuals,
@@ -645,7 +646,7 @@ def level_bwd_smem_bytes(tables: FusedTables) -> int:
     c = tables.counts
     n_ls = 6 * (c["n_pt"] + c["n_sun"]) + 10
     n_prim = c["n_s"] + c["n_w"] + c["n_b"]
-    ls = n_ls * _BLOCK if n_ls <= 32 else n_ls  # csrc LANE_LS_MAX
+    ls = n_ls * _BLOCK if n_ls <= _LANE_LS_MAX else n_ls
     return 4 * (tables.packed.numel() - 8 * n_prim + ls + 14 * (c["n_w"] + c["n_b"]))
 
 
