@@ -12,7 +12,8 @@ trace_level_bwd) against theirs on six workloads (grid-2048 at 1080p and
 five lights among them), level by level on the same inputs and shortlists, then the chain end
 to end and its backward, and the stats and a level on rays with zero, tiny
 and non-finite direction components (the stats' warp cull); a
-sweep of tile shapes and the whole-vs-per-level times; the small-scene
+sweep of tile shapes and the whole-vs-per-level times (with, for each lane
+whose selection differs between the routes, the ungated fold as arbiter); the small-scene
 render path (``render`` of sprint3 at 1920x1080, depth 3) and its training
 path (10 ``make_fit_step`` steps); the large-scene render path (``render``
 of grid-1024 at 1920x1080, depth 3, and at 3840x2160, depth 4) and its
@@ -31,11 +32,17 @@ centre error falling); the closest-hit
 kernels (fold_flat, fold_shortlist, fold_shortlist_hit) against their plain
 versions on eight workloads (primary and level-1 bounce rays, an all-dead
 mask; up to grid-2048) and against each other, their times and bounds (on
-primary rays, and on each level of the grid-1024 loop), and the sweep of
+primary rays, and on each level of the grid-1024 loop), fold_flat bit for
+bit with its plain version on the flat diagnosis's workloads (grid-1024
+1920x1080's primary rays and each level of its loop, grid-4096 and
+grid-8192 at 480x270 among them) and with its spheres streamed in tiles,
+its launch plan against the kernel's layout, and the sweep of
 ``closest_hit_soa``'s record cut-off; the closest-hit paths: ``render_depth``
 of BASELINE c1 (320x240), of grid-1024 at 1920x1080 and of c5 (3840x2160,
 4 row chunks), the ``"pallas"`` selector's fold as a direct caller runs it
-(c1, grid-1024), ``render(fold="pallas_flat")`` of sprint3 1920x1080 d3, and
+(c1, grid-1024), ``render(fold="pallas_flat")`` of sprint3 and of grid-1024
+at 1920x1080 d3 (grid-1024's image against the default route's, differing
+only on lanes where the ungated and gated folds differ), and
 the per-level loop around ``closest_hit_soa`` on grid-1024 1920x1080 d3 with
 its gradient; each path with the kernel launch counts set to 0 just before
 it and read just after; the frame, fit step (soft: c4, grid-1024,
@@ -106,8 +113,25 @@ the backward's winners a warp), the route rows (``whole_vs_levels``,
 forward and backward, kernels and calls) and the times of the kernels that
 share trace_common.cuh; then prints them as one JSON line, and exits
 non-zero if the forward kernel differs from its plain mirror.
-``--whole-compare`` runs it as ``--soft-compare`` does. The four modes
-share one harness (``COMPARE_MODES``, ``only``, ``compare``).
+``--whole-compare`` runs it as ``--soft-compare`` does.
+
+    python3 chip_smoke.py --flat-only [--root DIR]
+    python3 chip_smoke.py --flat-compare PARENT_DIR [--out FILE]
+
+``--flat-only`` runs the brute-force fold's diagnosis on the package at DIR
+(``ptxas -v`` and blocks per SM of fold_flat; on the primary rays of c1
+320x240, sprint3, grid-64, grid-1024 and grid-2048 at 1920x1080, the mixed
+and walls-only scenes at 256x128, grid-130 at 333x111 and grid-4096 and
+grid-8192 at 480x270, and on each level of the grid-1024 1920x1080 d3 loop,
+the time a launch, its bound and share, and its issue-slot floor at the SM
+clock measured under load; on grid-1024's primary rays and level 2 the
+share of ray-sphere tests that reach the square root, from the plain
+mirror), the ``render(fold="pallas_flat")`` and default frames of sprint3
+and grid-1024 at 1920x1080 d3, and the times of the kernels that share
+trace_common.cuh; then prints them as one JSON line, and exits non-zero if
+the kernel differs from its plain version or mirror. ``--flat-compare`` runs
+it as ``--soft-compare`` does. The five modes share one harness
+(``COMPARE_MODES``, ``only``, ``compare``).
 """
 
 from __future__ import annotations
@@ -1002,6 +1026,7 @@ def whole_vs_levels(device, grids=ROUTE_GRIDS) -> list:
         lv_w = cuda_fold.Residuals(o, d, w, t_w, i_w, res_w)
         lv_l = cuda_fold.Residuals(o, d, w, t_l, i_l, res_l)
         rows.append(dict(
+            arbitration=arbitrate(tables, lv_w, lv_l, alive),
             name=f"grid{n}", n_c=tables.counts["n_c"], table_bytes=tables.smem_bytes,
             alive=int(alive.sum()), mismatches=int((alive & ~same).sum()),
             t_equal=bool(torch.equal(t_w[same], t_l[same])),
@@ -1018,6 +1043,40 @@ def whole_vs_levels(device, grids=ROUTE_GRIDS) -> list:
             levels_bwd_call_ms=_calls_ms(
                 lambda: cuda_level.trace_levels_bwd(tables, attrs, ls, lv_l, ct, 3), 10),
         ))
+    return rows
+
+
+def arbitrate(tables, lv_w, lv_l, alive, limit: int = 8) -> list:
+    """The lanes where the whole-trace route's selection differs from the
+    per-level chain's (at most ``limit``), each with the ungated fold as
+    arbiter: its level and pixel, both selections, | |d| - 1 | of its
+    direction on each route's rays of that level, whether those rays are
+    the same, ``fold_flat``'s selection on each route's rays, and which
+    route agrees with it."""
+    from raytracer_tpu_torch.core.v3 import V3
+    from raytracer_tpu_torch.ops import cuda_hit
+
+    lanes = torch.nonzero(alive & (lv_w.i != lv_l.i))[:limit].tolist()
+    flat = {}
+    for k in sorted({lane[0] for lane in lanes}):
+        for route, lv in (("whole", lv_w), ("levels", lv_l)):
+            o, d, _ = lv.level(k)
+            flat[route, k] = cuda_hit.fold_flat(tables, V3(*(c.contiguous() for c in o)),
+                                                V3(*(c.contiguous() for c in d)))[1]
+    rows = []
+    for k, y, x in lanes:
+        row = dict(level=k, pixel=(y, x))
+        rays = {}
+        for route, lv in (("whole", lv_w), ("levels", lv_l)):
+            o, d, _ = lv.level(k)
+            rays[route] = [float(c[y, x]) for c in (*o, *d)]
+            row[route] = int(lv.i[k, y, x])
+            row[f"norm_err_{route}"] = abs(float(np.linalg.norm(np.float64(rays[route][3:]))) - 1)
+            row[f"flat_on_{route}_rays"] = int(flat[route, k][y, x])
+        row["same_rays"] = rays["whole"] == rays["levels"]
+        agree = [r for r in ("whole", "levels") if row[r] == row[f"flat_on_{r}_rays"]]
+        row["agrees_with_flat"] = " and ".join(agree) or "neither"
+        rows.append(row)
     return rows
 
 
@@ -1920,8 +1979,8 @@ def ptxas_start(names=("soft_level", "soft_level_bwd")) -> dict:
 
 
 def kernel_label(mangled: str) -> str:
-    """``name<true,false>`` of a mangled kernel in a namespace (``name``
-    without template arguments)."""
+    """``name<true,false>`` or ``name<2>`` of a mangled kernel in a
+    namespace (``name`` without template arguments)."""
     m = re.match(r"_ZN(\d+)", mangled)
     rest = mangled[m.end() + int(m.group(1)):] if m else mangled
     m = re.match(r"(\d+)", rest)
@@ -1929,11 +1988,11 @@ def kernel_label(mangled: str) -> str:
         return mangled
     n = int(m.group(1))
     name, args = rest[m.end():m.end() + n], rest[m.end() + n:]
-    flags = re.match(r"I((?:Lb[01]E)+)E", args)
+    flags = re.match(r"I((?:L[bi]\d+E)+)E", args)
     if not flags:
         return name
-    bits = re.findall(r"Lb([01])E", flags.group(1))
-    return f"{name}<{','.join('true' if b == '1' else 'false' for b in bits)}>"
+    vals = re.findall(r"L([bi])(\d+)E", flags.group(1))
+    return f"{name}<{','.join(v if t == 'i' else ('true' if v == '1' else 'false') for t, v in vals)}>"
 
 
 def ptxas_finish(procs: dict) -> list:
@@ -2247,18 +2306,15 @@ def max_err(a, b) -> float:
 def fold_ops(tables, listed, idx: np.ndarray, alive: np.ndarray, used: np.ndarray,
              kind: str) -> float:
     """Float32 operations of one closest-hit kernel on this run's data,
-    reckoned from its source as ``trace_level_ops`` is. ``"flat"``
-    (csrc/fold_flat.cu): per lane the ray terms (19), every sphere (22),
-    wall (39) and box (25). ``"shortlist"`` and ``"record"``
-    (csrc/fold_shortlist.cu): per alive lane the ray terms, walls and
+    reckoned from its source as ``trace_level_ops`` is (``fold_flat``'s:
+    ``flat_ops``). ``"shortlist"`` and ``"record"``
+    (csrc/fold_shortlist.cu): per alive lane the ray terms (19), walls and
     boxes; per used lane the slab clip (25) and the gate of every chunk of
     its tile's list; the spheres of one chunk where the winner is a sphere
     (a lower bound: a lane may fold more chunks than its winner's); with
     ``"record"`` the winner's record (sphere 38, wall 22, box 39)."""
     c = tables.counts
     n_s, n_w, n_b = c["n_s"], c["n_w"], c["n_b"]
-    if kind == "flat":
-        return float(alive.size * (19 + 22 * n_s + 39 * n_w + 25 * n_b))
     gate = 26 if c["gate"] == 0 else 24
     ops = float((19 + 39 * n_w + 25 * n_b) * alive.sum())
     if n_s:
@@ -2269,6 +2325,40 @@ def fold_ops(tables, listed, idx: np.ndarray, alive: np.ndarray, used: np.ndarra
                             (39, n_s + n_w, n_s + n_w + n_b)):
             ops += float(rec * (alive & (idx >= lo) & (idx < hi)).sum())
     return ops
+
+
+def flat_ops(tables, o, d) -> tuple[float, dict]:
+    """Float32 operations that the brute-force fold (csrc/fold_flat.cu)
+    needs on this run's rays (any shape; the flat fold has no alive mask):
+    per distinct origin (bit for bit) its |o|^2 (5) and each sphere's
+    origin term |o|^2 - 2 o.c + |c|^2 - r^2 (8), which every ray from that
+    origin shares (a camera's rays have one origin, bounce rays one each);
+    per ray d.o (5), the three safe reciprocals (9) where the scene has
+    boxes, every wall (39) and box (25); per ray-sphere test d.c, b_half,
+    disc (8) and the guard's two compares; and only per test that meets its
+    sphere ahead (disc >= 0 and b_half < 0, counted here on the rays'
+    device) the root: sqrtf, its subtraction and two compares (4). Returns
+    the count and its parts."""
+    c, cols = tables.counts, tables.cols
+    n_s, n_w, n_b = c["n_s"], c["n_w"], c["n_b"]
+    ox, oy, oz, dx, dy, dz = (x.reshape(-1) for x in (*o, *d))
+    n = dx.numel()
+    bits = torch.stack([x.view(torch.int32) for x in (ox, oy, oz)], dim=1)
+    origins = int(torch.unique(bits, dim=0).shape[0]) if n else 0
+    roots = 0
+    if n_s and n:
+        oo = ox * ox + oy * oy + oz * oz
+        do = dx * ox + dy * oy + dz * oz
+        step = max(1, (1 << 26) // n)  # spheres a pass: ~64 M tests
+        for s0 in range(0, n_s, step):
+            sl = slice(s0, s0 + step)
+            cx, cy, cz, cr2 = (cols[k][sl].view(-1, 1) for k in ("cx", "cy", "cz", "cr2"))
+            b_half = do - (dx * cx + dy * cy + dz * cz)
+            disc = b_half * b_half - (oo - 2.0 * (ox * cx + oy * cy + oz * cz) + cr2)
+            roots += int(((disc >= 0.0) & (b_half < 0.0)).sum())
+    ops = ((5 + 8 * n_s) * origins + (5 + (9 if n_b else 0) + 39 * n_w + 25 * n_b) * n
+           + 10 * n * n_s + 4 * roots)
+    return float(ops), dict(origins=origins, tests=n * n_s, roots=roots)
 
 
 def hit_inputs(tables, o, d, w):
@@ -2353,20 +2443,21 @@ def check_hit(case, device) -> dict:
     return out
 
 
-def flat_canary(device, width: int = 1920, height: int = 1080, depth: int = 3) -> list:
+def flat_canary(device, width: int = 1920, height: int = 1080, depth: int = 3):
     """The ungated fold against the gated one on grid-1024's bounce rays at
     full size (kernels only): for each bounce level of the per-level chain,
     the alive lanes, those whose direction is not unit (| |d| - 1 | >
     1e-6, after grazing bounces), and the lanes where ``fold_flat`` and
     ``fold_shortlist`` differ, in all and at unit directions (where the
-    gates are exact, so none may differ)."""
+    gates are exact, so none may differ). Returns the rows and the ``[H,
+    W]`` mask of lanes that differ at some level."""
     from raytracer_tpu_torch.core.v3 import V3
     from raytracer_tpu_torch.ops import cuda_fold, cuda_hit, cuda_level
 
     tables = cuda_fold.fused_tables(make_scene(("grid_sphere_scene", (1024,)), device))
     o, d, w = frame_rays(width, height, device)
     _, _, _, res = cuda_level.trace_levels(tables, o, d, w, depth, emit_res=True)
-    rows = []
+    rows, mask = [], torch.zeros((height, width), dtype=torch.bool, device=device)
     for k in range(depth):
         r = res[k]
         lo, ld, lw = V3(*r[:3]), V3(*r[3:6]), r[6].contiguous()
@@ -2376,9 +2467,10 @@ def flat_canary(device, width: int = 1920, height: int = 1080, depth: int = 3) -
         norm = torch.sqrt(ld.x.double() ** 2 + ld.y.double() ** 2 + ld.z.double() ** 2)
         non_unit = alive & ((norm - 1.0).abs() > 1e-6)
         differ = alive & ((i10 != i9) | ~same_mask(t10, t9))
+        mask |= differ
         rows.append(dict(level=k + 1, alive=int(alive.sum()), non_unit=int(non_unit.sum()),
                          differ=int(differ.sum()), differ_unit=int((differ & ~non_unit).sum())))
-    return rows
+    return rows, mask
 
 
 def hit_kernel_times(tables, o, d, w, plain: bool = True, flat: bool = True) -> dict:
@@ -2386,8 +2478,9 @@ def hit_kernel_times(tables, o, d, w, plain: bool = True, flat: bool = True) -> 
     ``[H, W]`` rays with their alive plane ``w``, its plain version's (with
     ``plain``), and its bound on this run's data: the bytes (each input
     plane and the shortlists read once, each output plane written once) at
-    3.35 TB/s against ``fold_ops`` at 67 TFLOP/s. Each kernel's output is
-    held against its plain version's on the same inputs: ``same`` when
+    3.35 TB/s against ``fold_ops`` (``fold_flat``: ``flat_ops``) at 67
+    TFLOP/s. Each kernel's output is held against its plain version's on
+    the same inputs: ``same`` when
     every plane agrees bit for bit (NaN where NaN), and ``max_abs_err``.
     ``fold_flat`` only with ``flat``."""
     from raytracer_tpu_torch.ops import cuda_hit
@@ -2413,7 +2506,8 @@ def hit_kernel_times(tables, o, d, w, plain: bool = True, flat: bool = True) -> 
         del calls["fold_flat"]
     out = {}
     for name, (kern, ref, nbytes, kind) in calls.items():
-        ops = fold_ops(tables, listed, idx, alive, used, kind)
+        ops = (flat_ops(tables, o, d)[0] if kind == "flat"
+               else fold_ops(tables, listed, idx, alive, used, kind))
         got, want = kern(), ref()
         out[name] = dict(
             same=all(same_planes(a, b) for a, b in zip(got, want)),
@@ -2591,16 +2685,21 @@ def hit_expect(scene, n_calls: int, stats: int) -> dict:
     return launches_of(**{kernel: n_calls}, ray_stats=stats * n_calls)
 
 
-def drive_flat_render(device, width: int = 1920, height: int = 1080, depth: int = 3) -> dict:
-    """``render(fold="pallas_flat")`` of sprint3 through the public entry
-    point: one ``fold_flat`` launch per level and no other kernel, no plain
-    version on CUDA; its image against ``render()``'s (the whole-trace
-    kernel) on the same frame; both frame times (``benchmark_render``)."""
+def drive_flat_render(device, spec=("sprint3_scene", ()), width: int = 1920,
+                      height: int = 1080, depth: int = 3, canary=None) -> dict:
+    """``render(fold="pallas_flat")`` through the public entry point: one
+    ``fold_flat`` launch per level and no other kernel, no plain version on
+    CUDA; its image against ``render()``'s (the whole-trace kernel or the
+    per-level chain) on the same frame: with ``canary`` (``flat_canary``'s
+    mask of lanes where the ungated and gated folds differ at some bounce
+    level), the pixels that differ by more than 1e-5 must all lie in it;
+    without, at most 1e-4 of the pixels may differ, none by more than 1e-5;
+    both frame times (``benchmark_render``)."""
     from raytracer_tpu_torch import render
     from raytracer_tpu_torch.models import scenes
     from raytracer_tpu_torch.utils.profiler import benchmark_render
 
-    scene = scenes.sprint3_scene(device=device)
+    scene = make_scene(spec, device)
     camera = scenes.reference_demo_camera(device=device)
     with PlainOnCuda() as plain, torch.no_grad():
         reset_launches()
@@ -2608,13 +2707,20 @@ def drive_flat_render(device, width: int = 1920, height: int = 1080, depth: int 
         torch.cuda.synchronize()
         launches = read_launches()
     ref = render(scene, camera, width, height, depth=depth, device=device)
-    equal = same_mask(img, ref).all(dim=-1)
+    near = (same_mask(img, ref) | ((img - ref).abs() <= 1e-5)).all(dim=-1)
     out = dict(launches=launches, plain_calls=plain.calls, image=image_stats(img),
-               equal_frac=float(equal.float().mean()),
+               equal_frac=float(same_mask(img, ref).all(dim=-1).float().mean()),
+               differ=int((~near).sum()),
                max_abs_err=float((img - ref).abs().nan_to_num(0.0).max()))
-    out["ok"] = (launches == launches_of(fold_flat=depth + 1) and plain.calls == 0
-                 and out["image"]["nonfinite"] == 0 and out["image"]["range_ok"]
-                 and out["equal_frac"] >= 0.9999 and out["max_abs_err"] <= 1e-5)
+    ok = (launches == launches_of(fold_flat=depth + 1) and plain.calls == 0
+          and out["image"]["nonfinite"] == 0 and out["image"]["range_ok"])
+    if canary is None:
+        ok &= out["equal_frac"] >= 0.9999 and out["differ"] == 0
+    else:
+        out["canary_lanes"] = int(canary.sum())
+        out["differ_outside_canary"] = int((~near & ~canary).sum())
+        ok &= out["differ_outside_canary"] == 0
+    out["ok"] = ok
     for fold in ("pallas_flat", "auto"):
         out[f"frame_ms_{fold}"] = benchmark_render(scene, camera, width, height, depth=depth,
                                                    iters=20, fold=fold)["frame_ms"]
@@ -3378,6 +3484,10 @@ def whole_extras(device) -> dict:
     return {"route": route_rows(device), "shared": hit_shared_times(device)}
 
 
+def flat_extras(device) -> dict:
+    return {"frames": flat_frames(device), "shared": hit_shared_times(device)}
+
+
 # ---------------------------------------------------------------------------
 # The whole-trace diagnosis (trace_whole, trace_whole_bwd) and --whole-only
 # ---------------------------------------------------------------------------
@@ -3550,6 +3660,206 @@ def route_rows(device) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The brute-force fold's diagnosis (fold_flat) and --flat-only
+# ---------------------------------------------------------------------------
+
+# (name, scene, width, height): primary rays of BASELINE c1 (the demo scene
+# at 320x240), of sprint3 at 1920x1080 (the render(fold="pallas_flat")
+# frame), of boxes (the mixed scene) and walls only at 256x128, of grid-64,
+# of grid-130 at 333x111 (a ragged sphere tile and batch), of grid-1024 and
+# grid-2048 at 1920x1080, and of grid-4096 and grid-8192 at 480x270 (tables
+# of 64 and 128 KB, past one tile of the first design's 4 KB), and grid-5000
+# at 480x270 (its spheres in tiles of 2048, 2048 and a ragged 904).
+FLAT_DIAG_FRAMES = (
+    ("c1_demo_320x240", ("reference_demo_scene", ()), 320, 240),
+    ("sprint3_1920x1080", ("sprint3_scene", ()), 1920, 1080),
+    ("mixed_256x128", ("mixed_primitive_scene", ()), 256, 128),
+    ("walls_only_256x128", ("walls_only", ()), 256, 128),
+    ("grid64_1920x1080", ("grid_sphere_scene", (64,)), 1920, 1080),
+    ("grid130_333x111", ("grid_sphere_scene", (130,)), 333, 111),
+    ("grid1024_1920x1080", ("grid_sphere_scene", (1024,)), 1920, 1080),
+    ("grid2048_1920x1080", ("grid_sphere_scene", (2048,)), 1920, 1080),
+    ("grid4096_480x270", ("grid_sphere_scene", (4096,)), 480, 270),
+    ("grid8192_480x270", ("grid_sphere_scene", (8192,)), 480, 270),
+    ("grid5000_480x270", ("grid_sphere_scene", (5000,)), 480, 270),
+)
+# Where the diagnosis runs the plain mirror (``fold_flat_mirror``) for the
+# share of ray-sphere tests that reach the square root: grid-1024 1080p's
+# primary rays and level 2 of its d3 loop.
+FLAT_ROOTS = (("grid1024_1920x1080", 0), ("loop_grid1024_1920x1080_d3", 2))
+# FP32 lanes of the H100 SXM: 132 SMs of 128. Built with -fmad=false, a
+# lane retires one float32 operation a cycle, so ``flat_ops`` over this at
+# the SM clock is the fold's issue-slot floor (half the 67 TFLOP/s bound's
+# rate, which counts an FMA as two operations).
+FP32_LANES = 132 * 128
+
+
+def flat_smem(tables) -> int:
+    """Dynamic shared bytes of a fold_flat launch: the package's plan where
+    it has one, else 0 (the first design's 4 KB tile is static)."""
+    from raytracer_tpu_torch.ops import cuda_hit
+
+    plan = getattr(cuda_hit, "flat_smem_bytes", None)
+    return 0 if plan is None else plan(tables)
+
+
+def flat_row(tables, o, d, root: bool = False) -> dict:
+    """``fold_flat`` on one set of rays (any shape; the flat fold has no
+    alive mask): its device time (``event_ms``), its bound on this run's
+    data (32 bytes a ray at 3.35 TB/s against ``flat_ops`` at 67 TFLOP/s:
+    its distinct origins and the tests that reach the root) and the share
+    of it, whether it equals ``fold_flat_reference`` bit for bit; with
+    ``root``, the plain mirror's work (``fold_flat_mirror``, where the
+    package has it): the share of ray-sphere tests that reach the square
+    root, and of the warps' guard branches that are taken, and whether the
+    mirror equals the kernel."""
+    from raytracer_tpu_torch.ops import cuda_hit
+
+    n = d.x.numel()
+    ops, need = flat_ops(tables, o, d)
+    nbytes = 32 * n
+    t, i = cuda_hit.fold_flat(tables, o, d)
+    t_ref, i_ref = cuda_hit.fold_flat_reference(tables, o, d)
+    ms = event_ms(lambda: cuda_hit.fold_flat(tables, o, d))
+    bound = max(nbytes / PEAK_BYTES_S, ops / PEAK_F32_S) * 1e3
+    row = dict(lanes=n, ms=ms, bound_ms=bound, share=bound / ms, gflop=ops / 1e9,
+               bound_by="bytes" if nbytes / PEAK_BYTES_S >= ops / PEAK_F32_S else "operations",
+               same=same_planes(t, t_ref) and torch.equal(i, i_ref),
+               hits=int((i >= 0).sum()), ops=ops, origins=need["origins"],
+               roots=need["roots"])
+    mirror = getattr(cuda_hit, "fold_flat_mirror", None)
+    if root and mirror is not None and tables.counts["n_s"]:
+        (tm, im), work = mirror(tables, o, d)
+        row.update(mirror_same=same_planes(t, tm) and torch.equal(i, im), work=work,
+                   root_share=work["roots"] / max(work["tests"], 1),
+                   branch_share=work["branches_taken"] / max(work["branches"], 1))
+    return row
+
+
+def sm_clocks(fn, launches: int = 400, samples: int = 5) -> dict:
+    """The SM clock while the card runs ``launches`` calls of ``fn``,
+    queued at once: ``nvidia-smi``'s ``clocks.sm`` sampled ``samples``
+    times before the queue drains, and ``clocks.max.sm`` (MHz)."""
+    for _ in range(launches):
+        fn()
+    got = []
+    for _ in range(samples):
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader,nounits"],
+            check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
+        got.append([int(v) for v in out.split(",")])
+    torch.cuda.synchronize()
+    return dict(sm_mhz=[g[0] for g in got], max_mhz=got[0][1])
+
+
+def flat_diagnosis(device, procs=None, reach: bool = True) -> dict:
+    """``ptxas -v`` of fold_flat (registers, spills) with its blocks per SM
+    at each frame's shared bytes, then ``flat_row`` for the primary rays of
+    each frame of FLAT_DIAG_FRAMES and for each level of the grid-1024
+    1920x1080 d3 loop (``loop_hit_rays``: the rays ``render(fold=
+    "pallas_flat")`` folds there, dead lanes included), with the mirror's
+    root shares at FLAT_ROOTS (with ``reach``), each workload's issue-slot
+    floor at the SM clock measured under load on grid-1024, and that
+    clock."""
+    from raytracer_tpu_torch.ops import cuda_fold, cuda_hit
+
+    rows = ptxas_finish(procs or ptxas_start(("fold_flat",))) if reach else []
+    block = getattr(cuda_hit, "FLAT_BLOCK", 256)
+    out = {"ptxas": rows, "scenes": {}}
+    work = [(name, cuda_fold.fused_tables(make_scene(spec, device)),
+             [frame_rays(width, height, device)[:2]])
+            for name, spec, width, height in FLAT_DIAG_FRAMES]
+    ltables, calls = loop_hit_rays(device)
+    work.append(("loop_grid1024_1920x1080_d3", ltables, [c[:2] for c in calls]))
+    for name, tables, sets in work:
+        c = tables.counts
+        launches = [flat_row(tables, o, d, reach and (name, k) in FLAT_ROOTS)
+                    for k, (o, d) in enumerate(sets)]
+        out["scenes"][name] = dict(
+            n_s=c["n_s"], n_w=c["n_w"], n_b=c["n_b"], smem=flat_smem(tables),
+            ms=[r["ms"] for r in launches], bound_ms=[r["bound_ms"] for r in launches],
+            share=[r["share"] for r in launches], rows=launches)
+        for row in rows:
+            row[f"blocks_per_sm_{name}"] = occupancy(row, block, flat_smem(tables))
+    g_tables, ((go, gd),) = next((t, r) for n, t, r in work if n == "grid1024_1920x1080")
+    clocks = sm_clocks(lambda: cuda_hit.fold_flat(g_tables, go, gd))
+    out["clocks"] = clocks
+    ghz = statistics.median(clocks["sm_mhz"]) / 1e3
+    for sc in out["scenes"].values():
+        sc["issue_floor_ms"] = [r["ops"] / (FP32_LANES * ghz * 1e9) * 1e3 for r in sc["rows"]]
+    return out
+
+
+def print_flat_diagnosis(diag: dict):
+    for row in diag["ptxas"]:
+        occ = {k: v for k, v in row.items() if k.startswith("blocks_per_sm")}
+        print(f"flat diagnosis ptxas {row['kernel']}: registers={row.get('registers')} "
+              f"spill_stores={row.get('spill_stores')} spill_loads={row.get('spill_loads')} "
+              f"static_smem={row.get('static_smem')} {occ}", flush=True)
+    print(f"flat diagnosis SM clock under load (MHz): {diag['clocks']}", flush=True)
+    for name, sc in diag["scenes"].items():
+        print(f"flat diagnosis {name}: n_s={sc['n_s']} n_w={sc['n_w']} n_b={sc['n_b']} "
+              f"smem={sc['smem']} fold_flat_ms={[round(v, 4) for v in sc['ms']]} "
+              f"bound_ms={[round(v, 4) for v in sc['bound_ms']]} "
+              f"share_of_bound={[round(v, 3) for v in sc['share']]} "
+              f"issue_floor_ms={[round(v, 4) for v in sc['issue_floor_ms']]}", flush=True)
+        for k, r in enumerate(sc["rows"]):
+            line = (f"  launch {k}: lanes={r['lanes']} hits={r['hits']} {r['gflop']:.4g} GFLOP "
+                    f"({r['bound_by']}; origins={r['origins']} roots={r['roots']}) "
+                    f"bit_for_bit={r['same']}")
+            if "work" in r:
+                wk = r["work"]
+                line += (f" mirror_same={r['mirror_same']} tests={wk['tests']} "
+                         f"root_share={r['root_share']:.5f} branches={wk['branches']} "
+                         f"taken_share={r['branch_share']:.5f} "
+                         f"one_origin_groups={wk['one_origin_groups']} of {wk['groups']}")
+            print(line, flush=True)
+
+
+def flat_failed(diag: dict) -> list:
+    """The launches of a flat diagnosis where the kernel differs from its
+    plain version or its plain mirror."""
+    return [f"{name} launch {k}" for name, sc in diag["scenes"].items()
+            for k, r in enumerate(sc["rows"])
+            if not r["same"] or r.get("mirror_same") is False]
+
+
+def check_flat_plan(device) -> bool:
+    """Whether ``cuda_hit.flat_plan``'s shared bytes equal csrc/fold_flat.cu's
+    ``fold_flat_smem_bytes`` at its tile, for each scene of
+    FLAT_DIAG_FRAMES (whole tables, tables in tiles of 2048 spheres, a
+    ragged last tile; no spheres)."""
+    from raytracer_tpu_torch.ops import _build, cuda_fold, cuda_hit
+
+    lib = _build.load("fold_flat", cuda_hit._SIGNATURES["fold_flat"])
+    ok = True
+    for _, spec, _, _ in FLAT_DIAG_FRAMES:
+        tables = cuda_fold.fused_tables(make_scene(spec, device))
+        c = tables.counts
+        tile, smem = cuda_hit.flat_plan(tables)
+        ok &= lib.fold_flat_smem_bytes(c["n_s"], c["n_w"], c["n_b"], tile) == smem
+    return ok
+
+
+def flat_frames(device, width: int = 1920, height: int = 1080, depth: int = 3) -> dict:
+    """``render(fold="pallas_flat")`` and ``render()`` (the default route)
+    of sprint3 and grid-1024 at ``width`` x ``height``, depth ``depth``
+    (``benchmark_render``, median of 20 frames)."""
+    from raytracer_tpu_torch.models import scenes
+    from raytracer_tpu_torch.utils.profiler import benchmark_render
+
+    camera = scenes.reference_demo_camera(device=device)
+    out = {}
+    for name, scene in (("sprint3", scenes.sprint3_scene(device=device)),
+                        ("grid1024", scenes.grid_sphere_scene(1024, device=device))):
+        for fold in ("pallas_flat", "auto"):
+            b = benchmark_render(scene, camera, width, height, depth=depth, iters=20, fold=fold)
+            out[f"{name}_{width}x{height}_d{depth}_{fold}"] = dict(
+                frame_ms=b["frame_ms"], frame_ms_all=b["frame_ms_all"])
+    return out
+
+
 # --MODE-only and --MODE-compare: per mode the kernels built, those whose
 # ``ptxas -v`` the diagnosis reads, the diagnosis and its printer, the
 # launch lists of each diagnosed scene that --MODE-compare sets side by
@@ -3575,6 +3885,10 @@ COMPARE_MODES = {
                   ptxas=("trace_whole", "trace_whole_bwd"), diagnose=whole_diagnosis,
                   show=print_whole_diagnosis, per_launch=("fwd_ms", "fwd_res_ms", "bwd_ms"),
                   extras=whole_extras, failed=whole_failed),
+    "flat": dict(build=("fold_flat", "fold_shortlist", "ray_stats", "trace_level",
+                        "trace_level_bwd", "trace_whole", "trace_whole_bwd"),
+                 ptxas=("fold_flat",), diagnose=flat_diagnosis, show=print_flat_diagnosis,
+                 per_launch=("ms",), extras=flat_extras, failed=flat_failed),
 }
 
 
@@ -3664,7 +3978,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
-    from raytracer_tpu_torch.ops import _build, cuda_fold, cuda_level
+    from raytracer_tpu_torch.ops import _build, cuda_fold, cuda_hit, cuda_level
     from raytracer_tpu_torch.utils.profiler import (
         benchmark_fit_step,
         benchmark_forward_backward,
@@ -3757,6 +4071,9 @@ def main() -> int:
               f"per_level={row['levels_bwd_call_ms']:.4f}; "
               f"selection_mismatches={row['mismatches']} of {row['alive']} alive "
               f"t_equal_where_same={row['t_equal']}", flush=True)
+        if row["arbitration"]:
+            print(f"route mismatches {row['name']} 1920x1080 d3, fold_flat as arbiter: "
+                  f"{row['arbitration']}", flush=True)
 
     # ---- small scenes: sprint3 render and fit (the whole-trace kernels) ----
     img, launches = drive_main_path("cuda")
@@ -3930,7 +4247,8 @@ def main() -> int:
         hit_results.append(r)
         ok &= r["ok"]
         print_hit(r)
-    for row in flat_canary("cuda"):
+    canary_rows, canary = flat_canary("cuda")
+    for row in canary_rows:
         ok &= row["differ_unit"] == 0
         print(f"fold_flat vs fold_shortlist, grid1024 1920x1080 bounce level {row['level']}: "
               f"alive={row['alive']} non_unit_directions={row['non_unit']} "
@@ -3947,6 +4265,13 @@ def main() -> int:
                          f"{v['mbytes']:.1f} MB, {v['gflop']:.3g} GFLOP, listed chunks "
                          f"{v['listed']:.2f}; plain {v['plain_ms']:.2f}, bit for bit {v['same']})"
                          for k, v in hit_times[name].items()), flush=True)
+    fdiag = flat_diagnosis("cuda", reach=False)
+    ok &= not flat_failed(fdiag)
+    print_flat_diagnosis(fdiag)
+    fplan = check_flat_plan("cuda")
+    ok &= fplan
+    print(f"fold_flat launch plan equals the kernel's shared layout on every flat diagnosis "
+          f"scene: {fplan}", flush=True)
     for k, lv in enumerate(hit_loop):
         ok &= all(v["same"] for v in lv.values())
         print(f"closest-hit times grid1024_1920x1080 loop level {k} (ms per launch, CUDA events): "
@@ -3985,12 +4310,22 @@ def main() -> int:
               f"hits={r['hits']} plain_fold_equal={r['plain_equal']} "
               f"call_ms={r['call_ms']:.4f}", flush=True)
     flat = drive_flat_render("cuda")
-    ok &= flat["ok"]
-    print(f"main path render(fold='pallas_flat') sprint3 1920x1080 d3: launches={flat['launches']} "
-          f"ok={flat['ok']} plain_calls_on_cuda={flat['plain_calls']} image={flat['image']} "
-          f"equal_to_default_frac={flat['equal_frac']} max_abs_err={flat['max_abs_err']:.3g} "
-          f"frame_ms pallas_flat={flat['frame_ms_pallas_flat']:.4f} "
-          f"default={flat['frame_ms_auto']:.4f}", flush=True)
+    flat_grid = drive_flat_render("cuda", ("grid_sphere_scene", (1024,)), canary=canary)
+    # c1's frame: batches of 76,800 rays, below FLAT_SMALL (one ray a thread).
+    flat_c1 = drive_flat_render("cuda", ("reference_demo_scene", ()), 320, 240)
+    for name, r, size in (("sprint3", flat, (1920, 1080)), ("grid1024", flat_grid, (1920, 1080)),
+                          ("c1", flat_c1, (320, 240))):
+        ok &= r["ok"]
+        print(f"main path render(fold='pallas_flat') {name} {size[0]}x{size[1]} d3: "
+              f"launches={r['launches']} rays_a_thread={cuda_hit.flat_rays(size[0] * size[1])} "
+              f"ok={r['ok']} plain_calls_on_cuda={r['plain_calls']} "
+              f"image={r['image']} equal_to_default_frac={r['equal_frac']} "
+              f"pixels_differing_past_1e-5={r['differ']} "
+              + (f"(outside the canary's {r['canary_lanes']} differing lanes: "
+                 f"{r['differ_outside_canary']}) " if "canary_lanes" in r else "")
+              + f"max_abs_err={r['max_abs_err']:.3g} "
+              f"frame_ms pallas_flat={r['frame_ms_pallas_flat']:.4f} "
+              f"default={r['frame_ms_auto']:.4f}", flush=True)
     loop = drive_hit_loop("cuda")
     ok &= loop["ok"]
     print(f"main path per-level loop (closest_hit_soa, _ShortlistHit) grid1024 1920x1080 d3: "
@@ -4139,9 +4474,23 @@ def main() -> int:
                  "render_depth_grid1024": d1080["launches"],
                  "render_depth_c5": depth_paths["c5_grid1024_3840x2160"]["launches"],
                  "render_pallas_flat_sprint3": flat["launches"],
+                 "render_pallas_flat_grid1024": flat_grid["launches"],
+                 "render_pallas_flat_c1": flat_c1["launches"],
                  "loop_grid1024": loop["launches"],
                  "fold_pass_c1": fold_passes["c1_demo_320x240"]["launches"],
                  "fold_pass_grid1024": fold_passes["grid1024_1920x1080"]["launches"]}
+    g_flat, l_flat = (fdiag["scenes"][k] for k in ("grid1024_1920x1080",
+                                                   "loop_grid1024_1920x1080_d3"))
+    flat_extra = {
+        "ms_grid1024_1920x1080": g_flat["ms"][0], "bound_ms_grid1024_1920x1080":
+        g_flat["bound_ms"][0], "issue_floor_ms_grid1024_1920x1080": g_flat["issue_floor_ms"][0],
+        "ms_loop_grid1024_by_level": l_flat["ms"], "bound_ms_loop_grid1024_by_level":
+        l_flat["bound_ms"], "ms_flat_diagnosis": {k: v["ms"] for k, v in fdiag["scenes"].items()},
+        "sm_clock_mhz": fdiag["clocks"], "smem_grid1024": g_flat["smem"],
+        "frame_ms_pallas_flat": {"sprint3": flat["frame_ms_pallas_flat"],
+                                 "grid1024": flat_grid["frame_ms_pallas_flat"],
+                                 "c1": flat_c1["frame_ms_pallas_flat"]},
+    }
     for name, source, line, t, where in (
             ("fold_flat", "fold_flat.cu", 181, t_flat, "sprint3_1920x1080"),
             ("fold_shortlist", "fold_shortlist.cu", 1000, t_sl, "c1_demo_320x240"),
@@ -4162,9 +4511,10 @@ def main() -> int:
             "bound_ms_by_frame": {k: v[name]["bound_ms"] for k, v in hit_times.items()},
             **({"ms_loop_grid1024_by_level": [lv[name]["ms"] for lv in hit_loop],
                 "bound_ms_loop_grid1024_by_level": [lv[name]["bound_ms"] for lv in hit_loop]}
-               if name != "fold_flat" else {}),
+               if name != "fold_flat" else flat_extra),
             "library_ms": None,
-            "check": all(r["ok"] for r in hit_results) and all(v["same"] for v in timed),
+            "check": (all(r["ok"] for r in hit_results) and all(v["same"] for v in timed)
+                      and (name != "fold_flat" or (not flat_failed(fdiag) and fplan))),
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     if not ok:

@@ -292,19 +292,47 @@ __device__ __forceinline__ void fold_chunk(const Tab& T, int c, const Ray& r, co
 // warp-uniform control flow.
 // ---------------------------------------------------------------------------
 
+// sphere_ahead in its parts, which fold_flat.cu calls apart. The origin's
+// term of sphere (cx, cy, cz, cr2) for origin o with oo = |o|^2:
+// |o|^2 - 2 o.c + |c|^2 - r^2 (sphere_t's c_full).
+__device__ __forceinline__ float sphere_c_full(float cx, float cy, float cz, float cr2, float ox,
+                                               float oy, float oz, float oo) {
+  float m = ox * cx + oy * cy + oz * cz;
+  return oo - 2.0f * m + cr2;
+}
+
+// b_half and disc of one ray against the sphere centred at (cx, cy, cz)
+// whose origin term is c_full.
+__device__ __forceinline__ void sphere_disc(float cx, float cy, float cz, float c_full,
+                                            const Ray& r, const RayTerms& q, float& b_half,
+                                            float& disc) {
+  float s = r.dx * cx + r.dy * cy + r.dz * cz;
+  b_half = q.dod - s;
+  disc = b_half * b_half - c_full;
+}
+
+// Whether the ray meets the sphere ahead: disc >= 0 and b_half < 0, the
+// only tests whose near root can be > 0.
+__device__ __forceinline__ bool sphere_guard(float b_half, float disc) {
+  return disc >= 0.0f && b_half < 0.0f;
+}
+
+// The near root (sphere_t's value; NaN where disc < 0).
+__device__ __forceinline__ float sphere_near(float b_half, float disc) {
+  return -b_half - sqrtf(disc);
+}
+
 // Whether sphere_t of this sphere is > 0, and then its value in tt, the
 // same bits: it is > 0 only where disc >= 0 and b_half < 0, and only there
 // is sqrtf taken (a ray misses most spheres it is tested against, and sqrtf
 // of a negative operand takes its slow path).
 __device__ __forceinline__ bool sphere_ahead(float cx, float cy, float cz, float cr2,
                                              const Ray& r, const RayTerms& q, float& tt) {
-  float s = r.dx * cx + r.dy * cy + r.dz * cz;
-  float m = r.ox * cx + r.oy * cy + r.oz * cz;
-  float b_half = q.dod - s;
-  float c_full = q.oo - 2.0f * m + cr2;
-  float disc = b_half * b_half - c_full;
-  if (!(disc >= 0.0f && b_half < 0.0f)) return false;
-  tt = -b_half - sqrtf(disc);
+  float b_half, disc;
+  sphere_disc(cx, cy, cz, sphere_c_full(cx, cy, cz, cr2, r.ox, r.oy, r.oz, q.oo), r, q, b_half,
+              disc);
+  if (!sphere_guard(b_half, disc)) return false;
+  tt = sphere_near(b_half, disc);
   return tt > 0.0f;
 }
 

@@ -393,6 +393,52 @@ def _chunk_gate(t: dict, gate: int, c, o: V3, d: V3, iv, oo, do, t0, t1):
     return (t1 >= t0) & (dist2 <= t["gr2"][c])
 
 
+def _wall_box_candidates(t: dict, counts: dict, o: V3, d: V3, iv) -> list:
+    """Each wall's and each box's t for every ray (``MISS_T`` where it is
+    not hit): one ``[n_w, ...]`` and one ``[n_b, ...]`` stack, each only
+    where the scene has such primitives. ``iv`` (the safe reciprocal
+    direction) is read only for boxes."""
+    ox, oy, oz = o
+    dx, dy, dz = d
+    nd = dx.dim()
+
+    def col(name):
+        return t[name].view(-1, *([1] * nd))
+
+    cands = []
+    if counts["n_w"]:
+        nx, ny, nz = col("nx"), col("ny"), col("nz")
+        denom = dx * nx + dy * ny + dz * nz
+        num = col("dpl") - (ox * nx + oy * ny + oz * nz)
+        ok = torch.abs(denom) > 1e-12
+        tt = num / torch.where(ok, denom, 1.0)
+        relx = ox + dx * tt - col("px")
+        rely = oy + dy * tt - col("py")
+        relz = oz + dz * tt - col("pz")
+        u = relx * col("rx") + rely * col("ry") + relz * col("rz")
+        v = relx * col("ux") + rely * col("uy") + relz * col("uz")
+        valid = (
+            ok & (tt > 0.0) & (tt < MISS_T)
+            & (u >= 0.0) & (u <= col("ln")) & (v >= 0.0) & (v <= col("wd"))
+        )
+        cands.append(torch.where(valid, tt, MISS_T))
+    if counts["n_b"]:
+        ivx, ivy, ivz = iv
+        t1x, t2x = (col("bmnx") - ox) * ivx, (col("bmxx") - ox) * ivx
+        t1y, t2y = (col("bmny") - oy) * ivy, (col("bmxy") - oy) * ivy
+        t1z, t2z = (col("bmnz") - oz) * ivz, (col("bmxz") - oz) * ivz
+        tn = torch.maximum(
+            torch.maximum(torch.minimum(t1x, t2x), torch.minimum(t1y, t2y)),
+            torch.minimum(t1z, t2z),
+        )
+        tf = torch.minimum(
+            torch.minimum(torch.maximum(t1x, t2x), torch.maximum(t1y, t2y)),
+            torch.maximum(t1z, t2z),
+        )
+        cands.append(torch.where((tn <= tf) & (tn > 0.0) & (tn < MISS_T), tn, MISS_T))
+    return cands
+
+
 def _fold(t: dict, counts: dict, o: V3, d: V3, shortlist=None, gated: bool = True):
     """(best t, best global index) of every ray; ``(MISS_T, -1)`` on a miss.
 
@@ -414,43 +460,13 @@ def _fold(t: dict, counts: dict, o: V3, d: V3, shortlist=None, gated: bool = Tru
     ox, oy, oz = o
     dx, dy, dz = d
     nd = dx.dim()
-    n_s, n_w, n_b = counts["n_s"], counts["n_w"], counts["n_b"]
+    n_s = counts["n_s"]
 
     def col(name, sl=slice(None)):
         return t[name][sl].view(-1, *([1] * nd))
 
     iv = (_srecip(dx), _srecip(dy), _srecip(dz))
-    ivx, ivy, ivz = iv
-    cands = []
-    if n_w:
-        nx, ny, nz = col("nx"), col("ny"), col("nz")
-        denom = dx * nx + dy * ny + dz * nz
-        num = col("dpl") - (ox * nx + oy * ny + oz * nz)
-        ok = torch.abs(denom) > 1e-12
-        tt = num / torch.where(ok, denom, 1.0)
-        relx = ox + dx * tt - col("px")
-        rely = oy + dy * tt - col("py")
-        relz = oz + dz * tt - col("pz")
-        u = relx * col("rx") + rely * col("ry") + relz * col("rz")
-        v = relx * col("ux") + rely * col("uy") + relz * col("uz")
-        valid = (
-            ok & (tt > 0.0) & (tt < MISS_T)
-            & (u >= 0.0) & (u <= col("ln")) & (v >= 0.0) & (v <= col("wd"))
-        )
-        cands.append(torch.where(valid, tt, MISS_T))
-    if n_b:
-        t1x, t2x = (col("bmnx") - ox) * ivx, (col("bmxx") - ox) * ivx
-        t1y, t2y = (col("bmny") - oy) * ivy, (col("bmxy") - oy) * ivy
-        t1z, t2z = (col("bmnz") - oz) * ivz, (col("bmxz") - oz) * ivz
-        tn = torch.maximum(
-            torch.maximum(torch.minimum(t1x, t2x), torch.minimum(t1y, t2y)),
-            torch.minimum(t1z, t2z),
-        )
-        tf = torch.minimum(
-            torch.minimum(torch.maximum(t1x, t2x), torch.maximum(t1y, t2y)),
-            torch.maximum(t1z, t2z),
-        )
-        cands.append(torch.where((tn <= tf) & (tn > 0.0) & (tn < MISS_T), tn, MISS_T))
+    cands = _wall_box_candidates(t, counts, o, d, iv)
     if cands:
         bt, bi = _lexmin(torch.cat(cands), n_s)
     else:

@@ -64,6 +64,7 @@ from raytracer_tpu_torch.ops.cuda_fold import (
     _kinds,
     _raise_on,
     _record_math,
+    _srecip,
 )
 from raytracer_tpu_torch.ops.trace import MISS_T
 
@@ -71,6 +72,10 @@ __all__ = [
     "N_RECORD",
     "fold_flat_reference",
     "fold_flat",
+    "fold_flat_mirror",
+    "flat_plan",
+    "flat_rays",
+    "flat_smem_bytes",
     "fold_shortlist_reference",
     "fold_shortlist",
     "record_planes",
@@ -86,6 +91,18 @@ __all__ = [
 ]
 
 N_RECORD = 16  # planes of a hit record: t, index, point, normal, 8 materials
+# fold_flat's launch (csrc/fold_flat.cu): threads a block (its BLOCK); rays
+# a thread, FLAT_RAYS, or 1 for a batch of fewer than FLAT_SMALL rays
+# (``flat_rays``); the spheres go into shared memory in one copy while the
+# table takes at most FLAT_WHOLE_MAX bytes there, else in tiles of FLAT_TILE
+# spheres (``flat_plan``).
+FLAT_BLOCK = 256
+FLAT_RAYS = 2
+FLAT_SMALL = 100_000
+FLAT_GROUP = 4  # spheres whose tests one guard branch covers (GROUP)
+FLAT_WHOLE_MAX = 48 * 1024
+FLAT_TILE = 2048
+_MIRROR_SLICE = 32  # spheres the plain mirror tests at once (any count gives its result)
 
 
 # ---------------------------------------------------------------------------
@@ -98,6 +115,94 @@ def fold_flat_reference(tables: FusedTables, o: V3, d: V3):
     every primitive, with no slab clip and no chunk gate (``_fold`` with
     ``gated=False``, one sphere chunk at a time)."""
     return _fold(tables.cols, tables.counts, o, d, gated=False)
+
+
+def fold_flat_mirror(tables: FusedTables, o: V3, d: V3, rays: int | None = None,
+                     block: int | None = None, tile: int | None = None):
+    """Plain mirror of ``fold_flat``'s kernel (csrc/fold_flat.cu), in its
+    order of work: the flat batch in groups of ``block`` threads of
+    ``rays`` rays each (``flat_rays``' by default; ray ``j`` of thread
+    ``k`` of group ``g`` is ray ``g * block * rays + j * block + k``; the
+    last group's missing rays are tested as a ray from the origin along +z
+    and not kept); in a group
+    whose rays all start at its first ray's origin (bit for bit), each
+    sphere's ``c_full`` taken once from that origin; the spheres in tiles of
+    ``tile`` (``flat_plan``'s by default) in ascending index with a strict
+    ``<``, the discriminants of ``FLAT_GROUP`` spheres first and the square
+    root only where ``disc >= 0`` and ``b_half < 0`` (``sphere_ahead``);
+    then the walls and boxes with a strict ``<``, the reciprocal directions
+    only where the scene has boxes. Returns ``((t, index), work)``: the pair
+    equals ``fold_flat_reference``'s bit for bit, and ``work`` counts the
+    kernel's work: its groups (and those of one origin), threads and sphere
+    tiles, its ray-sphere tests and those that reach the square root, and
+    its warps' guard branches (one for ``FLAT_GROUP`` spheres and a thread's
+    rays, one a test past the last whole ``FLAT_GROUP`` of a tile) and those
+    taken, where some lane's test meets its sphere ahead."""
+    n = d.x.numel()
+    rays = flat_rays(n) if rays is None else rays
+    block = FLAT_BLOCK if block is None else block
+    c, cols = tables.counts, tables.cols
+    n_s = c["n_s"]
+    tile = flat_plan(tables)[0] if tile is None else tile
+    shape, dev = d.x.shape, d.x.device
+    group = block * rays
+    n_groups = -(-n // group)
+    pad = n_groups * group - n
+
+    def lay(x, fill):
+        flat = x.reshape(-1)
+        return torch.cat([flat, flat.new_full((pad,), fill)]).view(n_groups, rays, block)
+
+    lo = V3(*(lay(x, 0.0) for x in o))
+    ld = V3(lay(d.x, 0.0), lay(d.y, 0.0), lay(d.z, 1.0))
+    valid = lay(torch.ones(n, dtype=torch.bool, device=dev), False)
+    bits = [x.view(torch.int32) for x in lo]
+    one = torch.ones(n_groups, dtype=torch.bool, device=dev)
+    for b in bits:
+        one &= ((b == b[:, :1, :1]) | ~valid).flatten(1).all(dim=1)
+    one &= n_s > 0
+    o1 = V3(*(x[:, :1, :1] for x in lo))  # each group's first ray's origin
+    bt = torch.full(lo.x.shape, MISS_T, dtype=torch.float32, device=dev)
+    bi = torch.full(lo.x.shape, -1, dtype=torch.int32, device=dev)
+    work = dict(groups=n_groups, one_origin_groups=int(one.sum()), threads=n_groups * block,
+                tiles=-(-n_s // tile) if n_s else 0, tests=n_groups * group * n_s, roots=0,
+                branches=0, branches_taken=0)
+    oo = lo.x * lo.x + lo.y * lo.y + lo.z * lo.z
+    do = ld.x * lo.x + ld.y * lo.y + ld.z * lo.z
+    oo1 = o1.x * o1.x + o1.y * o1.y + o1.z * o1.z
+    one = one.view(-1, 1, 1)
+    for base in range(0, n_s, tile):
+        end = min(base + tile, n_s)
+        whole = base + (end - base) // FLAT_GROUP * FLAT_GROUP
+        for s0 in range(base, end, _MIRROR_SLICE):
+            sl = slice(s0, min(s0 + _MIRROR_SLICE, end))
+            cx, cy, cz, cr2 = (cols[k][sl].view(-1, 1, 1, 1) for k in ("cx", "cy", "cz", "cr2"))
+            s = ld.x * cx + ld.y * cy + ld.z * cz
+            b_half = do - s
+            m = lo.x * cx + lo.y * cy + lo.z * cz
+            m1 = o1.x * cx + o1.y * cy + o1.z * cz
+            c_full = torch.where(one, oo1 - 2.0 * m1 + cr2, oo - 2.0 * m + cr2)
+            disc = b_half * b_half - c_full
+            ahead = (disc >= 0.0) & (b_half < 0.0)
+            tt = -b_half - torch.sqrt(torch.where(ahead, disc, 0.0))
+            ok = ahead & (tt > 0.0) & (tt < MISS_T)
+            ct, ci = cuda_fold._lexmin(torch.where(ok, tt, MISS_T), sl.start)
+            win = (ci >= 0) & (ct < bt)
+            bt, bi = torch.where(win, ct, bt), torch.where(win, ci, bi)
+            work["roots"] += int(ahead.sum())
+            warps = ahead.view(*ahead.shape[:-1], block // 32, 32).any(dim=-1)
+            k = max(0, min(whole, sl.stop) - sl.start)  # spheres of whole groups
+            grouped = warps[:k].view(k // FLAT_GROUP, FLAT_GROUP, *warps.shape[1:]).any(dim=1)
+            grouped = grouped.any(dim=2)  # and over the thread's rays
+            work["branches"] += grouped.numel() + warps[k:].numel()
+            work["branches_taken"] += int(grouped.sum()) + int(warps[k:].sum())
+    iv = (_srecip(ld.x), _srecip(ld.y), _srecip(ld.z)) if c["n_b"] else None
+    cands = cuda_fold._wall_box_candidates(cols, c, lo, ld, iv)
+    if cands:
+        ct, ci = cuda_fold._lexmin(torch.cat(cands), n_s)
+        win = (ci >= 0) & (ct < bt)
+        bt, bi = torch.where(win, ct, bt), torch.where(win, ci, bi)
+    return (bt.reshape(-1)[:n].view(shape), bi.reshape(-1)[:n].view(shape)), work
 
 
 def _as_lists(shortlist, shape, tile, device):
@@ -168,6 +273,35 @@ def fold_shortlist_hit_pair_reference(tables: FusedTables, shortlist, o: V3, d: 
     return record_planes(cols, tables.counts, o, d, bt, bi), work
 
 
+def flat_plan(tables: FusedTables) -> tuple[int, int]:
+    """``(tile, shared bytes)`` of a ``fold_flat`` launch: the spheres as
+    float4 (centre, |c|^2 - r^2), the whole table in one copy while that
+    and the walls and boxes take at most ``FLAT_WHOLE_MAX`` bytes, else
+    ``FLAT_TILE`` spheres at a time; then the walls' (15 floats each) and
+    the boxes' (6) columns as they are in the packed table. The layout of
+    csrc/fold_flat.cu (``fold_flat_smem_bytes``)."""
+    n_s = tables.counts["n_s"]
+    tile = max(n_s, 1) if _flat_bytes(tables, n_s) <= FLAT_WHOLE_MAX else FLAT_TILE
+    return tile, _flat_bytes(tables, tile)
+
+
+def _flat_bytes(tables: FusedTables, tile: int) -> int:
+    c = tables.counts
+    return 16 * min(tile, c["n_s"]) + 4 * (15 * c["n_w"] + 6 * c["n_b"])
+
+
+def flat_rays(n: int) -> int:
+    """Rays a thread of a ``fold_flat`` launch of ``n`` rays: ``FLAT_RAYS``,
+    or 1 below ``FLAT_SMALL`` rays (each level of a 320x240 frame), where
+    two a thread would leave too few blocks to fill the card."""
+    return FLAT_RAYS if n >= FLAT_SMALL else 1
+
+
+def flat_smem_bytes(tables: FusedTables) -> int:
+    """Dynamic shared bytes of a ``fold_flat`` launch (``flat_plan``)."""
+    return flat_plan(tables)[1]
+
+
 def hit_smem_bytes(tables: FusedTables) -> int:
     """Dynamic shared bytes of a ``fold_shortlist(_hit)`` launch
     (csrc/fold_shortlist.cu): the spheres as float4 (centre, |c|^2 - r^2),
@@ -191,19 +325,24 @@ def fold_flat(tables: FusedTables, o: V3, d: V3):
     brute-force fold. Inputs: six contiguous float32 planes of one shape (any
     shape: the kernel walks them as a flat batch) on one device. On CPU
     tensors this is ``fold_flat_reference``; on CUDA tensors it launches
-    csrc/fold_flat.cu on the current stream, or raises."""
+    csrc/fold_flat.cu on the current stream (``flat_plan``, ``flat_rays``),
+    or raises."""
     dev, shape = d.x.device, d.x.shape
     _check_planes((*o, *d), shape, dev, "fold_flat")
     if dev.type == "cpu":
         return fold_flat_reference(tables, o, d)
     _check_table(tables, 0, dev, "fold_flat")
+    tile, smem = flat_plan(tables)
+    if smem > cuda_fold._SMEM_MAX:
+        raise ValueError(f"fold_flat: the walls and boxes and a tile of {tile} spheres take "
+                         f"{smem} bytes of shared memory; a block has {cuda_fold._SMEM_MAX}")
     t = torch.empty(shape, dtype=torch.float32, device=dev)
     i = torch.empty(shape, dtype=torch.int32, device=dev)
     if t.numel():
         lib = _build.load("fold_flat", _SIGNATURES["fold_flat"])
         err = lib.fold_flat_launch(
-            *cuda_level._table_args(tables), *cuda_level._ptrs((*o, *d, t, i)), t.numel(),
-            _stream(dev),
+            *cuda_level._table_args(tables), tile, flat_rays(t.numel()),
+            *cuda_level._ptrs((*o, *d, t, i)), t.numel(), _stream(dev),
         )
         _raise_on(err, lib, "fold_flat")
         fold_flat.launches += 1
@@ -356,8 +495,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "fold_flat": {
         "fold_flat_launch": (
-            _I, cuda_level._TABLE_ARGTYPES + [_P] * 8 + [ctypes.c_longlong, _P]
+            _I, cuda_level._TABLE_ARGTYPES + [_I] * 2 + [_P] * 8 + [ctypes.c_longlong, _P]
         ),
+        "fold_flat_smem_bytes": (ctypes.c_longlong, [_I] * 4),
         "fold_flat_error_string": (ctypes.c_char_p, [_I]),
     },
     "fold_shortlist": {
