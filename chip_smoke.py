@@ -20,7 +20,7 @@ of grid-1024 at 1920x1080, depth 3, and at 3840x2160, depth 4) and its
 training path (5 steps at 1920x1080, depth 3); the soft kernels
 (soft_level, soft_level_bwd) against their plain versions on nine
 workloads (up to 8192 spheres), level by level, the residual planes and the
-backward included; the soft launch plan against the kernels' own shared
+backward included, the backward bit for bit on a repeat; the soft launch plan against the kernels' own shared
 memory; the soft diagnosis (``ptxas -v`` of every instantiation of both
 soft kernels, their blocks per SM, and per level of c4, grid-1024 and
 grid-2048 at 1920x1080 their times and bounds, the chunks a lane, a warp and
@@ -28,7 +28,18 @@ a block reach in launch order, the chunks the warp cull passes and the
 share of dead lanes); the soft render path (``render_soft`` of BASELINE
 c4, grid-64 at 1920x1080, depth 1) and its training path (20
 ``make_fit_step(soft=True)`` steps from moved centres, the loss and the
-centre error falling); the closest-hit
+centre error falling); the app phase, through the command line
+(``app.cli.main``): the c4 fit app in full (``fit --config
+c4-fit-64sphere --steps 600``: the hard target, the annealed tau, the
+cosine schedule; 2 soft_level and 2 soft_level_bwd launches a step, its
+artefacts, its final loss, centre error and hard PSNR held to bars and
+printed beside the JAX package's own run, its step times), the JAX
+package's fitted c4 state (docs/fit_c4/checkpoint.npz) carried across,
+rendered and resumed for 10 steps, ``render`` of c3 (the PNG against
+``render`` pixel for pixel), ``render --depth-only`` of c1, ``render`` of
+c5 on one card, ``--mesh 2,1`` refused, ``bench --fwd-bwd --trace`` of c3
+(its trace naming both whole-trace kernels) and ``view`` of c2 for 3
+frames; the closest-hit
 kernels (fold_flat, fold_shortlist, fold_shortlist_hit) against their plain
 versions on eight workloads (primary and level-1 bounce rays, an all-dead
 mask; up to grid-2048) and against each other, their times and bounds (on
@@ -49,7 +60,8 @@ it and read just after; the frame, fit step (soft: c4, grid-1024,
 grid-2048, grid-4096) and forward/backward times and breakdowns; a profile
 of one frame; the guards; a ``kernels`` JSON line. The last line is
 ``{"ok": true, "device": {...}}``. Any failed check ends the run with a
-non-zero exit code and no result line. Without CUDA, or without the package
+non-zero exit code and no result line, and names the failed checks on
+standard error. Without CUDA, or without the package
 beside it, it exits non-zero at once.
 
     python3 chip_smoke.py --soft-only [--root DIR]
@@ -136,8 +148,10 @@ it as ``--soft-compare`` does. The five modes share one harness
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
+import io
 import json
 import re
 import statistics
@@ -1644,7 +1658,9 @@ def check_soft(case, device) -> dict:
     forward and backward: the forward must equal the plain version on the
     natural order bit for bit, the backward (from the same residual planes)
     must be within the tolerances, its table cotangent against the plain
-    version's for that level alone."""
+    version's for that level alone. Each level's backward in lane order is
+    launched twice more into fresh tables: both equal bit for bit (the
+    kernel's sums do not depend on the order in which warps add)."""
     from raytracer_tpu_torch.core.v3 import V3
     from raytracer_tpu_torch.ops import cuda_soft
 
@@ -1660,7 +1676,7 @@ def check_soft(case, device) -> dict:
     r = dict(name=name, n_s=counts["n_s"], fwd_err=[], fwd_rel=[], fwd_identical=[],
              ms=[], ms_res=[], plain_ms=[], bound_ms=[], bound_by=[], reached=[],
              bwd_rel=[], bwd_ms=[], bwd_plain_ms=[], bwd_bound_ms=[], bwd_bound_by=[],
-             order_identical=[], order_bwd_rel=[], order_table_rel=[])
+             order_identical=[], order_bwd_rel=[], order_table_rel=[], repeat_identical=[])
     levels = []
     with torch.no_grad():
         for k in range(2):
@@ -1712,6 +1728,11 @@ def check_soft(case, device) -> dict:
         r["order_bwd_rel"].append(max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
                                       for a, b in zip(got_o, want)))
         r["order_table_rel"].append(table_rel_err(tables, sums_o, sums_r - before)[0])
+        reps = [torch.zeros_like(sums_k) for _ in range(2)]
+        cts = [cuda_soft.soft_level_bwd(tables, gates, o, d, w, res, ct, ct_next, last, t,
+                                        order=order) for t in reps]
+        r["repeat_identical"].append(torch.equal(*reps)
+                                     and all(torch.equal(a, b) for a, b in zip(*cts)))
         scratch = torch.zeros_like(sums_k)
         r["bwd_ms"].append(event_ms(lambda: cuda_soft.soft_level_bwd(
             tables, gates, o, d, w, res, ct, ct_next, last, scratch), iters=5, warmup=1))
@@ -1724,12 +1745,13 @@ def check_soft(case, device) -> dict:
         r["bwd_bound_by"].append(by)
         ct_next = want
     for key in ("bwd_rel", "bwd_ms", "bwd_plain_ms", "bwd_bound_ms", "bwd_bound_by",
-                "order_bwd_rel", "order_table_rel"):
+                "order_bwd_rel", "order_table_rel", "repeat_identical"):
         r[key].reverse()
     table_rel, table_err, worst = table_rel_err(tables, sums_k, sums_r)
     r["table_rel"], r["table_err"], r["table_worst"] = table_rel, table_err, worst
     r["fwd_ok"] = max(r["fwd_rel"]) <= 1e-6
-    r["bwd_ok"] = max(r["bwd_rel"]) <= SOFT_BWD_TOL and table_rel <= SOFT_TABLE_TOL
+    r["bwd_ok"] = (max(r["bwd_rel"]) <= SOFT_BWD_TOL and table_rel <= SOFT_TABLE_TOL
+                   and all(r["repeat_identical"]))
     r["order_ok"] = (all(r["order_identical"]) and max(r["order_bwd_rel"]) <= SOFT_BWD_TOL
                      and max(r["order_table_rel"]) <= SOFT_TABLE_TOL)
     r["ok"] = r["fwd_ok"] and r["bwd_ok"] and r["order_ok"]
@@ -1765,7 +1787,8 @@ def print_soft(r: dict):
         f"soft_level_bwd {r['name']}: ok={r['bwd_ok']} plane_max_rel_err="
         f"{[float(f'{v:.3g}') for v in r['bwd_rel']]} table_max_rel_err={r['table_rel']:.3g} "
         f"(array {r['table_worst']}) "
-        f"table_max_abs_err={r['table_err']:.3g} ms={[round(v, 4) for v in r['bwd_ms']]} "
+        f"table_max_abs_err={r['table_err']:.3g} repeat_identical={r['repeat_identical']} "
+        f"ms={[round(v, 4) for v in r['bwd_ms']]} "
         f"plain_ms={[round(v, 1) for v in r['bwd_plain_ms']]} "
         f"bound_ms={[round(v, 4) for v in r['bwd_bound_ms']]} ({r['bwd_bound_by']})",
         flush=True,
@@ -1940,6 +1963,295 @@ def drive_soft_fit(device, steps: int = 20, width: int = 1920, height: int = 108
           and all(bool(torch.isfinite(v).all()) for v in state.params.values()))
     return dict(launches=launches, per_step=per_step, losses=losses, errors=errors,
                 plain_calls=plain.calls, ok=ok)
+
+
+# ---------------------------------------------------------------------------
+# The app phase: the user's entry points (app/cli.py, app/fit.py) on the card
+# ---------------------------------------------------------------------------
+
+# The JAX package's own 600-step c4 fit on its TPU (docs/fit_c4/metrics.jsonl):
+# results of the same program, not times, printed beside the port's.
+JAX_C4_FIT = {"loss_step1": 1.4152561780065298e-3, "center_err_step1": 0.07357753813266754,
+              "final_loss": 1.884377525129821e-05, "final_center_err": 0.04098173603415489,
+              "psnr_hard_db": 48.44}
+C4_FIT_STEPS = 600
+C4_FIT_BARS = {"final_loss": 4e-5, "final_center_err": 0.05, "psnr_hard_db": 46.0}
+
+
+class ObservedFitSteps:
+    """While entered, ``app/fit.py``'s fit steps are observed: around each
+    ``step_fn`` call, the launch counts' change and a pair of CUDA events."""
+
+    def __enter__(self):
+        from raytracer_tpu_torch.app import fit as app_fit
+
+        self.module, self.real, self.rows = app_fit, app_fit.make_fit_step, []
+
+        def make(*args, **kwargs):
+            init_fn, step_fn = self.real(*args, **kwargs)
+
+            def step(*a, **kw):
+                before = read_launches()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = step_fn(*a, **kw)
+                end.record()
+                after = read_launches()
+                self.rows.append((start, end, {k: after[k] - before[k] for k in after}))
+                return out
+
+            return init_fn, step
+
+        app_fit.make_fit_step = make
+        return self
+
+    def __exit__(self, *exc):
+        self.module.make_fit_step = self.real
+
+    def step_ms(self) -> list:
+        torch.cuda.synchronize()
+        return [start.elapsed_time(end) for start, end, _ in self.rows]
+
+
+def run_cli(argv: list) -> tuple[int, str, dict]:
+    """``app.cli.main(argv)`` with its standard output captured, the launch
+    counts set to 0 just before and read just after."""
+    from raytracer_tpu_torch.app.cli import main as cli_main
+
+    buf = io.StringIO()
+    reset_launches()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(argv)
+    torch.cuda.synchronize()
+    return rc, buf.getvalue(), read_launches()
+
+
+def psnr_db(img: torch.Tensor, ref: torch.Tensor) -> float:
+    """``run_fit``'s score: 10 log10(1 / MSE) of the float images."""
+    mse = float(torch.mean((img - ref) ** 2))
+    return 10.0 * float(np.log10(1.0 / max(mse, 1e-12)))
+
+
+def drive_app_fit(out_dir: Path) -> dict:
+    """The c4 fit app in full through the command line: ``fit --config
+    c4-fit-64sphere --steps 600`` (tau 2e-3 annealed from 8e-3, the hard
+    target, the cosine schedule), each step with its launches and CUDA-event
+    time; the artefacts, the metrics and the bars on the final loss, centre
+    error and hard PSNR."""
+    t0 = time.perf_counter()
+    with ObservedFitSteps() as obs:
+        rc, out, launches = run_cli(["fit", "--config", "c4-fit-64sphere", "--steps",
+                                     str(C4_FIT_STEPS), "-o", str(out_dir)])
+    seconds = time.perf_counter() - t0
+    step_ms = obs.step_ms()
+    lines = [json.loads(x) for x in (out_dir / "metrics.jsonl").read_text().splitlines()]
+    final = lines[-1]
+    losses = [x["loss"] for x in lines[:-1]]
+    per_step_ok = all(p == launches_of(soft_level=2, soft_level_bwd=2) for _, _, p in obs.rows)
+    files = ["target.png", "initial.png", "final.png", "final_hard.png", "metrics.jsonl",
+             "checkpoint.npz"]
+    r = dict(
+        rc=rc, launches=launches, per_step_ok=per_step_ok, steps=len(obs.rows),
+        files_ok=all((out_dir / f).is_file() for f in files),
+        metrics_lines=len(lines), first=lines[0], final=final, seconds=seconds,
+        loop_seconds=lines[-2]["elapsed_s"],
+        step_ms_1_60=statistics.median(step_ms[:60]),
+        step_ms_540_600=statistics.median(step_ms[-61:]),
+        step_ms_all_median=statistics.median(step_ms), step_ms_sum=sum(step_ms),
+        last_stdout=out.strip().splitlines()[-1],
+    )
+    r["ok"] = (rc == 0 and per_step_ok and r["steps"] == C4_FIT_STEPS
+               and launches == launches_of(trace_whole=2, soft_level=2 * C4_FIT_STEPS + 4,
+                                           soft_level_bwd=2 * C4_FIT_STEPS)
+               and r["files_ok"] and len(lines) == C4_FIT_STEPS // 10 + 1 + 1
+               and all(np.isfinite(losses)) and np.isfinite(final["final_loss"])
+               and final["final_loss"] <= C4_FIT_BARS["final_loss"]
+               and final["final_center_err"] <= C4_FIT_BARS["final_center_err"]
+               and final["psnr_hard_db"] >= C4_FIT_BARS["psnr_hard_db"]
+               and r["last_stdout"] == json.dumps(final))
+    r["curve"] = [(x["step"], float(f"{x['loss']:.5g}"), float(f"{x['center_err']:.5g}"))
+                  for x in lines[:-1]]
+    return r
+
+
+def drive_app_jax_state(out_dir: Path, device) -> dict:
+    """The JAX package's fitted c4 state carried across
+    (``from_jax_fit_checkpoint``): its step, the hard render of its
+    parameters at 1920x1080 d1 scored against the port's target (within 0.5
+    dB of the JAX package's 48.44), then saved with ``save_fit_state`` and
+    resumed for 10 steps through ``run_fit`` (the loss stays <= 4e-5)."""
+    from raytracer_tpu_torch import make_fit_step, merge_params, render
+    from raytracer_tpu_torch.app.config import get_config
+    from raytracer_tpu_torch.app.fit import cosine_decay, run_fit
+    from raytracer_tpu_torch.utils.checkpoint import (
+        from_jax_fit_checkpoint,
+        restore_fit_state,
+        save_fit_state,
+    )
+
+    root = Path(__file__).resolve().parent
+    out_dir.mkdir(parents=True, exist_ok=True)
+    rec = from_jax_fit_checkpoint(root / "docs" / "fit_c4" / "checkpoint.npz")
+    cfg = get_config("c4-fit-64sphere")
+    truth, camera = cfg.build_scene(device=device), cfg.build_camera(device=device)
+    params = {k: torch.from_numpy(v).to(device) for k, v in rec.params.items()}
+    with torch.no_grad():
+        target = render(truth, camera, cfg.width, cfg.height, depth=cfg.depth, device=device)
+        fitted = render(merge_params(truth, params), camera, cfg.width, cfg.height,
+                        depth=cfg.depth, device=device)
+    psnr = psnr_db(fitted, target)
+    init_fn, _ = make_fit_step(cfg.width, cfg.height, depth=cfg.depth, soft=True, device=device)
+    state = init_fn(truth)
+    scheduler = torch.optim.lr_scheduler.LambdaLR(state.optimizer, cosine_decay(10))
+    restore_fit_state(state, scheduler, rec)
+    path = save_fit_state(out_dir / "jax_c4_state.npz", state, scheduler)
+    reset_launches()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = run_fit(cfg, steps=10, soft_tau=2e-3, out_dir=out_dir / "resumed", resume=str(path),
+                     device=device)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    lines = [json.loads(x) for x in (out_dir / "resumed" / "metrics.jsonl").read_text()
+             .splitlines()]
+    r = dict(step=rec.step, psnr_hard_db=psnr, rc=rc, resumed=lines, launches=launches)
+    r["ok"] = (rec.step == 600 and abs(psnr - JAX_C4_FIT["psnr_hard_db"]) <= 0.5 and rc == 0
+               and [x.get("step") for x in lines[:2]] == [601, 610]
+               and all(x.get("loss", x.get("final_loss")) <= C4_FIT_BARS["final_loss"]
+                       for x in lines)
+               and launches == launches_of(trace_whole=2, soft_level=24, soft_level_bwd=20))
+    return r
+
+
+def drive_app_cli(out_dir: Path, device) -> dict:
+    """The command line's other entry points on the card: ``render`` of c3
+    (its PNG, read back with ``load_image``, equals ``to_u8`` of ``render``
+    pixel for pixel; one ``trace_whole``), ``render --depth-only`` of c1 (one
+    ``fold_shortlist_hit``; the PNG is the finite normalised depth of
+    ``render_depth``), ``render`` of c5 on one card (mesh "auto": the
+    per-level chain, 4 row chunks; its PNG equals ``to_u8`` of a
+    ``render`` of the same config, which is not constant and has no more
+    non-finite pixels than the main path's c5 check allows), ``--mesh 2,1`` refused, ``bench`` of c3
+    with ``--fwd-bwd --trace`` (one JSON line; ``trace.json`` names both
+    whole-trace kernels), and ``view`` of c2 for 3 frames (3 frames of ANSI,
+    a log of both phases)."""
+    from raytracer_tpu_torch import render, render_depth
+    from raytracer_tpu_torch.app.cli import depth_image
+    from raytracer_tpu_torch.app.config import get_config
+    from raytracer_tpu_torch.io import load_image, to_u8
+
+    r = {}
+    c3 = get_config("c3-1080p-3bounce")
+    rc, _, launches = run_cli(["render", "--config", c3.name, "-o", str(out_dir / "c3.png")])
+    with torch.no_grad():
+        want = render(c3.build_scene(device=device), c3.build_camera(device=device), c3.width,
+                      c3.height, depth=c3.depth, device=device)
+    r["render_c3"] = dict(launches=launches, ok=(
+        rc == 0 and launches == launches_of(trace_whole=1)
+        and np.array_equal(load_image(out_dir / "c3.png"), to_u8(want))))
+
+    c1 = get_config("c1-depth-pass")
+    rc, _, launches = run_cli(["render", "--config", c1.name, "--depth-only", "-o",
+                               str(out_dir / "c1.png")])
+    viz = depth_image(render_depth(c1.build_scene(device=device), c1.build_camera(device=device),
+                                   c1.width, c1.height, device=device).cpu().numpy())
+    r["render_c1_depth"] = dict(launches=launches, ok=(
+        rc == 0 and launches == launches_of(fold_shortlist_hit=1) and np.isfinite(viz).all()
+        and viz.max() == 1.0 and np.array_equal(load_image(out_dir / "c1.png"), to_u8(viz))))
+
+    c5 = get_config("c5-4k-1024sphere")
+    rc, _, launches = run_cli(["render", "--config", c5.name, "-o", str(out_dir / "c5.png")])
+    with torch.no_grad():
+        want = render(c5.build_scene(device=device), c5.build_camera(device=device), c5.width,
+                      c5.height, depth=c5.depth, tonemap=c5.tonemap, fold=c5.fold,
+                      device=device)
+    stats = image_stats(want)
+    r["render_c5"] = dict(launches=launches, image=stats, ok=(
+        rc == 0 and launches == launches_of(ray_stats=4, trace_level=20)
+        and stats["range_ok"] and stats["nonfinite"] <= 1e-5 * c5.width * c5.height
+        and float(want[torch.isfinite(want)].std()) > 0.0
+        and np.array_equal(load_image(out_dir / "c5.png"), to_u8(want))))
+
+    try:
+        run_cli(["render", "--config", "c2-sprint3-1bounce", "--mesh", "2,1", "-o",
+                 str(out_dir / "mesh.png")])
+        r["mesh_2_1_refused"] = False
+    except NotImplementedError:
+        r["mesh_2_1_refused"] = True
+
+    trace_dir = out_dir / "trace"
+    rc, out, launches = run_cli(["bench", "--config", c3.name, "--fwd-bwd", "--trace",
+                                 str(trace_dir)])
+    lines = out.strip().splitlines()
+    res = json.loads(lines[-1])
+    text = (trace_dir / "trace.json").read_text()
+    r["bench_c3"] = dict(
+        launches=launches, frame_ms=res["frame_ms"], forward_ms=res["forward_ms"],
+        backward_ms=res["backward_ms"], trace_mb=len(text) / 1e6,
+        ok=(rc == 0 and len(lines) == 1 and res["config"] == c3.name
+            and "trace_whole_kernel" in text and "trace_whole_bwd_kernel" in text))
+
+    log = out_dir / "view.log"
+    rc, out, launches = run_cli(["view", "--config", "c2-sprint3-1bounce", "--frames", "3",
+                                 "--log", str(log)])
+    report = log.read_text()
+    r["view_c2"] = dict(launches=launches, ok=(
+        rc == 0 and out.count("\x1b[H") == 3 and "\x1b[38;2;" in out
+        and launches == launches_of(trace_whole=3)
+        and "average raytracing time" in report and "average present time" in report))
+    r["ok"] = r["mesh_2_1_refused"] and all(v["ok"] for k, v in r.items()
+                                             if isinstance(v, dict))
+    return r
+
+
+def drive_app(device) -> dict:
+    """The app phase: the c4 fit app, the JAX package's fitted state carried
+    across, and the command line's render, depth pass, c5, mesh, bench and
+    view, every kernel on the card (no plain version on CUDA)."""
+    with tempfile.TemporaryDirectory() as tmp, PlainOnCuda() as plain:
+        tmp = Path(tmp)
+        fit = drive_app_fit(tmp / "fit")
+        jax_state = drive_app_jax_state(tmp / "jax_state", device)
+        cli = drive_app_cli(tmp, device)
+    return dict(fit=fit, jax_state=jax_state, cli=cli, plain_calls=plain.calls,
+                ok=fit["ok"] and jax_state["ok"] and cli["ok"] and plain.calls == 0)
+
+
+def app_failures(app: dict) -> list:
+    """The parts of the app phase that failed, by name."""
+    parts = [k for k in ("fit", "jax_state") if not app[k]["ok"]]
+    parts += [f"cli {k}" for k, v in app["cli"].items()
+              if k != "ok" and not (v["ok"] if isinstance(v, dict) else v)]
+    if app["plain_calls"]:
+        parts.append(f"{app['plain_calls']} plain calls on CUDA")
+    return parts
+
+
+def print_app(app: dict):
+    f, j = app["fit"], app["jax_state"]
+    print(f"app c4 fit (cli fit --config c4-fit-64sphere --steps {C4_FIT_STEPS}, tau 2e-3): "
+          f"ok={f['ok']} rc={f['rc']} launches={f['launches']} "
+          f"per_step soft_level 2 + soft_level_bwd 2 only={f['per_step_ok']} steps={f['steps']} "
+          f"files_ok={f['files_ok']} metrics_lines={f['metrics_lines']}", flush=True)
+    print(f"app c4 fit results (port on the card; JAX package's TPU run in brackets): "
+          f"step 1 loss {f['first']['loss']:.6g} [{JAX_C4_FIT['loss_step1']:.6g}] "
+          f"center_err {f['first']['center_err']:.6g} [{JAX_C4_FIT['center_err_step1']:.6g}]; "
+          f"final loss {f['final']['final_loss']:.6g} [{JAX_C4_FIT['final_loss']:.6g}] "
+          f"center_err {f['final']['final_center_err']:.6g} "
+          f"[{JAX_C4_FIT['final_center_err']:.6g}] psnr_hard_db {f['final']['psnr_hard_db']} "
+          f"[{JAX_C4_FIT['psnr_hard_db']}]; bars {C4_FIT_BARS}", flush=True)
+    print(f"app c4 fit metrics (step, loss, center_err): {f['curve']}", flush=True)
+    print(f"app c4 fit step ms (CUDA events around step_fn): median steps 1-60 "
+          f"{f['step_ms_1_60']:.4f}, steps 540-600 {f['step_ms_540_600']:.4f}, all "
+          f"{f['step_ms_all_median']:.4f}, sum {f['step_ms_sum'] / 1e3:.3f} s; the {f['steps']} steps' "
+          f"loop {f['loop_seconds']} s (host clock, metrics.jsonl); whole run {f['seconds']:.2f} s",
+          flush=True)
+    print(f"app JAX c4 state carried across: ok={j['ok']} step={j['step']} "
+          f"hard psnr_db={j['psnr_hard_db']:.4f} [JAX {JAX_C4_FIT['psnr_hard_db']}] "
+          f"resumed 10 steps: {j['resumed']} launches={j['launches']}", flush=True)
+    for name, v in app["cli"].items():
+        print(f"app cli {name}: {v}", flush=True)
+    print(f"app plain versions called on CUDA: {app['plain_calls']}; ok={app['ok']}", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -3999,12 +4311,16 @@ def main() -> int:
     _build.build(kernels_built)
     print(f"build: {', '.join(kernels_built)} {time.perf_counter() - t0:.1f} s", flush=True)
 
-    ok = True
+    failed = []
+
+    def check(name: str, passed) -> None:
+        if not passed:
+            failed.append(name)
     results, bwd_results = [], []
     for case in CASES:
         r = check_trace_whole(case, "cuda")
         results.append(r)
-        ok &= r["ok"]
+        check(f"trace_whole {r['name']}", r["ok"])
         print(
             f"trace_whole {r['name']}: ok={r['ok']} alive={r['alive']} "
             f"mismatches={r['mismatches']} t_rel_max={r['t_rel_max']:.3g} "
@@ -4019,7 +4335,7 @@ def main() -> int:
             print(line)
         b = check_trace_whole_bwd(r.pop("forward"), r["name"], "cuda")
         bwd_results.append(b)
-        ok &= b["ok"]
+        check(f"trace_whole_bwd {b['name']}", b["ok"])
         print(
             f"trace_whole_bwd {b['name']}: ok={b['ok']} alive={b['alive']} "
             f"plane_exceptions={b['plane_exceptions']} "
@@ -4038,11 +4354,11 @@ def main() -> int:
     for j, case in enumerate(LEVEL_CASES):
         r = check_levels(case, "cuda", timed=j < 2)
         level_results.append(r)
-        ok &= r["ok"]
+        check(f"per-level chain {r['name']}", r["ok"])
         print_level(r)
     lmain = level_results[0]
     edges = check_cull_edges("cuda")
-    ok &= edges["ok"]
+    check("stats cull on edge rays", edges["ok"])
     print(f"stats cull on edge rays (zero, tiny and non-finite directions) grid1024 96x64: "
           f"{edges}", flush=True)
 
@@ -4058,7 +4374,7 @@ def main() -> int:
     route = whole_vs_levels("cuda", ROUTE_GRIDS + ROUTE_GRIDS_PAST)
     for row in route:
         if row["n_c"] <= cuda_fold.FUSED_MAX_CHUNKS:  # the rows past the class inform only
-            ok &= row["mismatches"] <= 1e-5 * row["alive"]
+            check(f"whole vs per-level {row['name']}", row["mismatches"] <= 1e-5 * row["alive"])
         k = row["kernels"]
         print(f"whole vs per-level {row['name']} 1920x1080 d3 ({row['n_c']} chunks, table "
               f"{row['table_bytes']} B): forward trace_whole_ms={row['whole_ms']:.4f} "
@@ -4084,7 +4400,7 @@ def main() -> int:
         scenes.sprint3_scene(device="cuda"), scenes.reference_demo_camera(device="cuda"),
         1920, 1080, depth=3, iters=20,
     )
-    ok &= main_ok and im["ok"]
+    check("main path render sprint3", main_ok and im["ok"])
     main, bmain = results[0], bwd_results[0]
     print(
         f"main path render sprint3 1920x1080 d3: launches={launches} ok={main_ok and im['ok']} "
@@ -4094,7 +4410,7 @@ def main() -> int:
     )
 
     train = drive_training_path("cuda")
-    ok &= train["ok"]
+    check("main path fit sprint3", train["ok"])
     start, camera, _ = fit_start("cuda")
     fit = benchmark_fit_step(start, camera, 1920, 1080, depth=3, iters=10)
     print(
@@ -4128,7 +4444,7 @@ def main() -> int:
     img, level_launches = drive_level_path("cuda")
     lim = check_level_image(img, 1920, 1080, "cuda")
     level_ok = (level_launches == launches_of(ray_stats=1, trace_level=4)) and lim["ok"]
-    ok &= level_ok
+    check("main path render grid1024", level_ok)
     lbench = benchmark_render(grid, camera, 1920, 1080, depth=3, iters=20)
     print(
         f"main path render grid1024 1920x1080 d3: launches={level_launches} ok={level_ok} "
@@ -4141,7 +4457,7 @@ def main() -> int:
     c5_ok = (c5_launches == launches_of(ray_stats=4, trace_level=20)
              and c5_img["shape"] == (2160, 3840, 3) and c5_img["range_ok"]
              and c5_img["nonfinite"] <= 1e-5 * 3840 * 2160)
-    ok &= c5_ok
+    check("main path render c5", c5_ok)
     c5 = benchmark_render(grid, camera, 3840, 2160, depth=4, iters=5)
     print(
         f"main path render c5 grid1024 3840x2160 d4 (4 row chunks): launches={c5_launches} "
@@ -4150,7 +4466,7 @@ def main() -> int:
         f"(all {[round(v, 4) for v in c5['frame_ms_all']]})", flush=True,
     )
     ltrain = drive_level_training("cuda")
-    ok &= ltrain["ok"]
+    check("main path fit grid1024", ltrain["ok"])
     lstart, _, _ = level_fit_start("cuda")
     lfit = benchmark_fit_step(lstart, camera, 1920, 1080, depth=3, iters=5,
                               optimizer=level_fit_optimizer)
@@ -4188,17 +4504,17 @@ def main() -> int:
     for case in SOFT_CASES:
         r = check_soft(case, "cuda")
         soft_results.append(r)
-        ok &= r["ok"]
+        check(f"soft {r['name']}", r["ok"])
         print_soft(r)
     smain = soft_results[0]
     plan_ok = soft_plan_matches("cuda")
-    ok &= plan_ok
+    check("soft launch plan", plan_ok)
     print(f"soft launch plan: shared bytes of cuda_soft.soft_launch_plan equal the kernels' "
           f"own on every soft workload: {plan_ok}", flush=True)
     sdiag = soft_diagnosis("cuda", procs=soft_ptxas)
     print_soft_diagnosis(sdiag)
     srender = drive_soft_render("cuda")
-    ok &= srender["ok"]
+    check("main path render_soft c4", srender["ok"])
     print(
         f"main path render_soft c4 grid64 1920x1080 d1: launches={srender['launches']} "
         f"plain_calls_on_cuda={srender['plain_calls']} batch_1d_ok={srender['batch_1d_ok']} "
@@ -4207,7 +4523,7 @@ def main() -> int:
         f"(all {[round(v, 4) for v in srender['frame_ms_all']]})", flush=True,
     )
     sfit = drive_soft_fit("cuda")
-    ok &= sfit["ok"]
+    check("main path soft fit c4", sfit["ok"])
     _, sstart, _, _ = soft_fit_start("cuda")
     c4 = benchmark_fit_step(sstart, camera, 1920, 1080, depth=1, soft=True, iters=10)
     print(
@@ -4233,11 +4549,17 @@ def main() -> int:
                                    depth=1, soft=True, iters=3)
         torch.cuda.synchronize()
         n_launches = read_launches()  # 4 steps: one untimed, 3 timed
-        ok &= n_launches == launches_of(soft_level=8, soft_level_bwd=8)
+        check(f"soft fit grid{n} launches", n_launches == launches_of(soft_level=8, soft_level_bwd=8))
         fits_n[n] = dict(step_ms=fit_n["step_ms"], launches=n_launches["soft_level"])
         print(f"soft fit step grid{n} 1920x1080 d1: launches={n_launches} "
               f"step_ms={fit_n['step_ms']:.4f} (all {[round(v, 4) for v in fit_n['step_ms_all']]})",
               flush=True)
+
+    # ---- the app phase: the c4 fit app and the command line (app/, io/, utils/) ----
+    app = drive_app("cuda")
+    for part in app_failures(app):
+        check(f"app {part}", False)
+    print_app(app)
 
     # ---- the closest-hit API: render_depth, render(fold=...), the per-level
     # loop around closest_hit_soa (kernels 8-10) ----
@@ -4245,11 +4567,11 @@ def main() -> int:
     for case in HIT_CASES:
         r = check_hit(case, "cuda")
         hit_results.append(r)
-        ok &= r["ok"]
+        check(f"closest-hit {r['name']}", r["ok"])
         print_hit(r)
     canary_rows, canary = flat_canary("cuda")
     for row in canary_rows:
-        ok &= row["differ_unit"] == 0
+        check(f"fold_flat canary level {row['level']}", row["differ_unit"] == 0)
         print(f"fold_flat vs fold_shortlist, grid1024 1920x1080 bounce level {row['level']}: "
               f"alive={row['alive']} non_unit_directions={row['non_unit']} "
               f"differing_lanes={row['differ']} (at unit directions {row['differ_unit']})",
@@ -4259,21 +4581,21 @@ def main() -> int:
         hit_times[name] = time_hit(spec, width, height, "cuda",
                                    loop_depth=3 if name == "grid1024_1920x1080" else None)
         hit_loop = hit_times[name].pop("loop_levels", hit_loop)
-        ok &= all(v["same"] for v in hit_times[name].values())
+        check(f"closest-hit times {name}", all(v["same"] for v in hit_times[name].values()))
         print(f"closest-hit times {name} (ms per launch, CUDA events; primary rays): "
               + " ".join(f"{k} {v['ms']:.4f} (bound {v['bound_ms']:.4f} {v['bound_by']}: "
                          f"{v['mbytes']:.1f} MB, {v['gflop']:.3g} GFLOP, listed chunks "
                          f"{v['listed']:.2f}; plain {v['plain_ms']:.2f}, bit for bit {v['same']})"
                          for k, v in hit_times[name].items()), flush=True)
     fdiag = flat_diagnosis("cuda", reach=False)
-    ok &= not flat_failed(fdiag)
+    check("fold_flat diagnosis", not flat_failed(fdiag))
     print_flat_diagnosis(fdiag)
     fplan = check_flat_plan("cuda")
-    ok &= fplan
+    check("fold_flat launch plan", fplan)
     print(f"fold_flat launch plan equals the kernel's shared layout on every flat diagnosis "
           f"scene: {fplan}", flush=True)
     for k, lv in enumerate(hit_loop):
-        ok &= all(v["same"] for v in lv.values())
+        check(f"closest-hit loop level {k}", all(v["same"] for v in lv.values()))
         print(f"closest-hit times grid1024_1920x1080 loop level {k} (ms per launch, CUDA events): "
               + " ".join(f"{n} {v['ms']:.4f} (bound {v['bound_ms']:.4f} {v['bound_by']}, alive "
                          f"{v['alive']}, listed chunks {v['listed']:.2f}, bit for bit with the "
@@ -4290,7 +4612,7 @@ def main() -> int:
             ("c5_grid1024_3840x2160", ("grid_sphere_scene", (1024,)), 3840, 2160, False)):
         r = drive_depth("cuda", spec, width, height, reference)
         depth_paths[name] = r
-        ok &= r["ok"]
+        check(f"render_depth {name}", r["ok"])
         print(f"main path render_depth {name}: launches={r['launches']} ok={r['ok']} "
               f"plain_calls_on_cuda={r['plain_calls']} shape={r['shape']} "
               f"inf_share={r['inf_share']:.4f} "
@@ -4304,7 +4626,7 @@ def main() -> int:
             ("grid1024_1920x1080", ("grid_sphere_scene", (1024,)), 1920, 1080)):
         r = drive_fold_pass("cuda", spec, width, height)
         fold_passes[name] = r
-        ok &= r["ok"]
+        check(f"fold pass {name}", r["ok"])
         print(f"main path fold pass (resolve_fold_fn('pallas'), (t, index)) {name}: "
               f"launches={r['launches']} ok={r['ok']} plain_calls_on_cuda={r['plain_calls']} "
               f"hits={r['hits']} plain_fold_equal={r['plain_equal']} "
@@ -4315,7 +4637,7 @@ def main() -> int:
     flat_c1 = drive_flat_render("cuda", ("reference_demo_scene", ()), 320, 240)
     for name, r, size in (("sprint3", flat, (1920, 1080)), ("grid1024", flat_grid, (1920, 1080)),
                           ("c1", flat_c1, (320, 240))):
-        ok &= r["ok"]
+        check(f"render pallas_flat {name}", r["ok"])
         print(f"main path render(fold='pallas_flat') {name} {size[0]}x{size[1]} d3: "
               f"launches={r['launches']} rays_a_thread={cuda_hit.flat_rays(size[0] * size[1])} "
               f"ok={r['ok']} plain_calls_on_cuda={r['plain_calls']} "
@@ -4327,7 +4649,7 @@ def main() -> int:
               f"frame_ms pallas_flat={r['frame_ms_pallas_flat']:.4f} "
               f"default={r['frame_ms_auto']:.4f}", flush=True)
     loop = drive_hit_loop("cuda")
-    ok &= loop["ok"]
+    check("per-level loop", loop["ok"])
     print(f"main path per-level loop (closest_hit_soa, _ShortlistHit) grid1024 1920x1080 d3: "
           f"launches={loop['launches']} ok={loop['ok']} plain_calls_on_cuda={loop['plain_calls']} "
           f"image={loop['image']} equal_to_default_frac={loop['equal_frac']} "
@@ -4339,7 +4661,8 @@ def main() -> int:
           flush=True)
 
     guards = check_guards("cuda")
-    ok &= all(guards.values())
+    for name, passed in guards.items():
+        check(f"guard {name}", passed)
     print(f"guards (per-level route on CUDA, gradient paths run, refused launch raises): "
           f"{guards}", flush=True)
 
@@ -4352,7 +4675,9 @@ def main() -> int:
         "replaces": "raytracer_tpu/ops/pallas_fold.py:1795",
         "launches": launches["trace_whole"],
         "launches_by_path": {"render": launches["trace_whole"],
-                             "fit_10_steps": train["launches"]["trace_whole"]},
+                             "fit_10_steps": train["launches"]["trace_whole"],
+                             "app_fit_c4_600_steps": app["fit"]["launches"]["trace_whole"],
+                             "app_render_c3": app["cli"]["render_c3"]["launches"]["trace_whole"]},
         "max_abs_err": max(r["max_abs_err"] for r in results),
         "ms": main["ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
@@ -4436,7 +4761,8 @@ def main() -> int:
         "replaces": "raytracer_tpu/ops/pallas_soft.py:671",
         "launches": sfit["launches"]["soft_level"],
         "launches_by_path": {"render_soft_c4": srender["launches"]["soft_level"],
-                             "soft_fit_c4_20_steps": sfit["launches"]["soft_level"]},
+                             "soft_fit_c4_20_steps": sfit["launches"]["soft_level"],
+                             "app_fit_c4_600_steps": app["fit"]["launches"]["soft_level"]},
         "max_abs_err": max(max(r["fwd_err"]) for r in soft_results),
         "ms": frame_sum(smain["ms"]), "ms_per_level": smain["ms"],
         "ms_per_level_1080p": {k: v["fwd_ms"] for k, v in sdiag["scenes"].items()},
@@ -4453,7 +4779,8 @@ def main() -> int:
         "replaces": "raytracer_tpu/ops/pallas_soft.py:745",
         "launches": sfit["launches"]["soft_level_bwd"],
         "launches_by_path": {"render_soft_c4": srender["launches"]["soft_level_bwd"],
-                             "soft_fit_c4_20_steps": sfit["launches"]["soft_level_bwd"]},
+                             "soft_fit_c4_20_steps": sfit["launches"]["soft_level_bwd"],
+                             "app_fit_c4_600_steps": app["fit"]["launches"]["soft_level_bwd"]},
         "max_abs_err": smain["table_err"],
         "max_rel_err_all_cases": max(max(max(r["bwd_rel"]), r["table_rel"])
                                      for r in soft_results),
@@ -4471,6 +4798,7 @@ def main() -> int:
     t_sl = hit_times["c1_demo_320x240"]["fold_shortlist"]
     t_rec = hit_times["grid1024_1920x1080"]["fold_shortlist_hit"]
     hit_paths = {"render_depth_c1": c1_depth["launches"],
+                 "app_render_c1_depth_only": app["cli"]["render_c1_depth"]["launches"],
                  "render_depth_grid1024": d1080["launches"],
                  "render_depth_c5": depth_paths["c5_grid1024_3840x2160"]["launches"],
                  "render_pallas_flat_sprint3": flat["launches"],
@@ -4517,8 +4845,8 @@ def main() -> int:
                       and (name != "fold_flat" or (not flat_failed(fdiag) and fplan))),
         })
     print(json.dumps({"kernels": kernels}), flush=True)
-    if not ok:
-        print("chip_smoke: a check failed", file=sys.stderr)
+    if failed:
+        print(f"chip_smoke: {len(failed)} check(s) failed: {'; '.join(failed)}", file=sys.stderr)
         return 1
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

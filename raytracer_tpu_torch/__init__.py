@@ -12,11 +12,19 @@ backward ``csrc/soft_level_bwd.cu``, ``ops/cuda_soft.py``); the closest-hit
 API (``closest_hit_soa``, the depth pass ``render_depth`` and the fold
 selectors of ``render(fold=...)``) through the fold kernels
 ``csrc/fold_shortlist.cu`` and ``csrc/fold_flat.cu`` (``ops/cuda_hit.py``);
-and the fit step (``parallel/train.py``, hard or soft). Entry points run on
-CUDA unless called with ``device="cpu"``, which runs the kernels' plain
-PyTorch versions.
+and the fit step (``parallel/train.py``, hard or soft). The user's entry
+points: the run configurations (``app/config.py``: ``RenderConfig``,
+``BASELINE_CONFIGS``), the fit app (``app/fit.py``: ``run_fit``, with
+``utils/checkpoint.py``), the command line (``app/cli.py``: ``render``,
+``bench``, ``fit``, ``view``, ``configs``), the terminal viewer
+(``app/viewer.py``, ``ops/camera_ops.py``, ``io/term.py``), image files
+(``io/images.py``) and the phase timer and profiler trace
+(``utils/profiler.py``). Entry points run on CUDA unless called with
+``device="cpu"`` (``--device cpu`` on the command line), which runs the
+kernels' plain PyTorch versions.
 """
 
+from raytracer_tpu_torch.app.config import BASELINE_CONFIGS, RenderConfig, get_config
 from raytracer_tpu_torch.core.types import (
     Boxes,
     Camera,
@@ -35,6 +43,9 @@ from raytracer_tpu_torch.ops.trace import closest_hit_soa
 from raytracer_tpu_torch.render.integrator import render, render_depth, trace_rays
 
 __all__ = [
+    "RenderConfig",
+    "BASELINE_CONFIGS",
+    "get_config",
     "render",
     "render_depth",
     "closest_hit_soa",

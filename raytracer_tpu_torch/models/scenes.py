@@ -27,6 +27,8 @@ __all__ = [
     "reference_demo_camera",
     "sprint3_scene",
     "grid_sphere_scene",
+    "random_sphere_scene",
+    "logo_sphere_scene",
     "mixed_primitive_scene",
     "morton_sort",
 ]
@@ -166,6 +168,87 @@ def grid_sphere_scene(
         material=Materials.create(color=colors[order], metallic=metallic),
     )
     scene = Scene.create(spheres=spheres, walls=_floor_walls(), lights=_sun_lights())
+    return scene.to(resolve_device(device))
+
+
+def random_sphere_scene(n: int, *, extent: float = 12.0, seed: int = 0, device=None) -> Scene:
+    """``n`` spheres of random place, size, colour and metallic in a slab
+    of space, Morton-sorted, over the ground slab."""
+    rng = np.random.default_rng(seed)
+    centers = np.stack(
+        [
+            rng.uniform(4.0, 4.0 + extent, n),
+            rng.uniform(-extent, extent, n),
+            rng.uniform(-extent / 2, extent / 2, n),
+        ],
+        axis=-1,
+    ).astype(np.float32)
+    radii = rng.uniform(0.2, 0.8, n).astype(np.float32)
+    colors = rng.uniform(0.05, 1.0, (n, 3)).astype(np.float32)
+    metallic = rng.uniform(0.1, 0.9, n).astype(np.float32)
+    order = morton_sort(centers)
+    spheres = Spheres.create(
+        center=centers[order],
+        radius=radii[order],
+        material=Materials.create(color=colors[order], metallic=metallic[order]),
+    )
+    scene = Scene.create(spheres=spheres, walls=_floor_walls(), lights=_sun_lights())
+    return scene.to(resolve_device(device))
+
+
+# 5x7 bitmap glyphs for the logo scene (# = a sphere).
+_GLYPHS = {
+    "T": ["#####", "..#..", "..#..", "..#..", "..#..", "..#..", "..#.."],
+    "U": ["#...#", "#...#", "#...#", "#...#", "#...#", "#...#", ".###."],
+    "M": ["#...#", "##.##", "#.#.#", "#.#.#", "#...#", "#...#", "#...#"],
+}
+
+
+def logo_sphere_scene(
+    text: str = "TUM",
+    *,
+    spacing: float = 0.55,
+    radius: float = 0.26,
+    distance: float = 7.0,
+    metallic: float = 0.7,
+    device=None,
+) -> Scene:
+    """Reflective spheres laid out as the block letters of ``text`` (5x7
+    glyphs; an unknown character is a blank) at x = ``distance``, ambient
+    0.25, lit by a sun from the camera's side."""
+    ys, zs = [], []
+    x_cursor = 0.0
+    # y is negated below (the renderer mirrors the image horizontally),
+    # which also reverses the letters, so lay the text out right to left.
+    for ch in reversed(text.upper()):
+        glyph = _GLYPHS.get(ch)
+        if glyph is None:
+            x_cursor += 3 * spacing
+            continue
+        for row, line in enumerate(glyph):
+            for col, cell in enumerate(line):
+                if cell == "#":
+                    ys.append(x_cursor + col * spacing)
+                    zs.append((3.0 - row) * spacing)
+        x_cursor += (len(glyph[0]) + 1.5) * spacing
+    n = len(ys)
+    ys = -np.asarray(ys, np.float32)
+    ys -= ys.mean()  # centred horizontally
+    centers = np.stack(
+        [np.full(n, distance, np.float32), ys, np.asarray(zs, np.float32)], axis=-1
+    )
+    spheres = Spheres.create(
+        center=centers,
+        radius=np.full((n,), radius, np.float32),
+        material=Materials.create(
+            color=np.tile(np.asarray([[0.35, 0.55, 0.95]], np.float32), (n, 1)),
+            metallic=metallic,
+            ambient=0.25,
+        ),
+    )
+    scene = Scene.create(
+        spheres=spheres, walls=_floor_walls(), lights=_sun_lights((-0.8, 0.2, -0.55))
+    )
     return scene.to(resolve_device(device))
 
 

@@ -554,7 +554,12 @@ _MASK_WORDS = 8  # lane-mask words the forward keeps for its second pass (csrc M
 # Chunks of a tile of each kernel's sphere ring (csrc TILE_C of
 # soft_level.cu and soft_level_bwd.cu).
 _TILE_CHUNKS = 32
-_TILE_CHUNKS_BWD = 64
+_TILE_CHUNKS_BWD = 32
+# The backward's fixed-point sums of the spheres' cotangents
+# (csrc/soft_level_bwd.cu): hi words in units of 2^-20, lo words in units
+# of 2^-62, at most 2^27 lanes a launch.
+_FX_HI, _FX_LO = 2.0 ** -20, 2.0 ** -62
+_FX_MAX_LANES = 1 << 27
 # Bounce levels of scenes of at least this many chunks launch their lanes
 # in ``soft_lane_order``. At 1920x1080 on the H100 the sort (~0.9 ms) and
 # the sorted last level beat the natural order from 256 spheres (32 chunks)
@@ -584,8 +589,10 @@ def soft_launch_plan(counts: dict) -> dict:
         "tile_chunks": tc, "tile_chunks_bwd": tcb, "n_tiles": n_tiles,
         "n_tiles_bwd": -(-counts["n_chunks"] // tcb), "resident": n_tiles <= 2,
         "smem": 4 * (2 * (sph + len(GATE_KEYS)) * tc + n_small + _MASK_WORDS * _BLOCK + bounds),
-        "smem_bwd": 4 * (3 * sph * tcb + 2 * len(GATE_KEYS) * tcb + 2 * n_small
-                         + n_lt * _BLOCK + bounds),
+        # the ring, the small table and each warp's row of its cotangent, the
+        # lights' lane columns, the bounds; the spheres' fixed-point sums
+        "smem_bwd": 4 * (2 * (sph + len(GATE_KEYS)) * tcb + (1 + _BLOCK // 32) * n_small
+                         + n_lt * _BLOCK + bounds) + 16 * sph * tcb,
     }
 
 
@@ -713,6 +720,8 @@ def soft_level_bwd(tables: SoftTables, gates: torch.Tensor, o: V3, d: V3, w: tor
             g[10:] if ct_next is not None else None, is_last, sums)
         return _scattered(order, cts, shape)
     _check_soft(tables, gates, dev, name, bwd=True)
+    if w.numel() > _FX_MAX_LANES:
+        raise ValueError(f"{name} takes at most {_FX_MAX_LANES} lanes a launch, got {w.numel()}")
     return _soft_level_bwd_cuda(tables, gates, o, d, w, res, ct_acc, ct_next, is_last, sums,
                                 order)
 
@@ -723,14 +732,24 @@ def _soft_level_bwd_cuda(tables, gates, o, d, w, res, ct_acc, ct_next, is_last, 
     if w.numel():
         lib = _build.load(name, _SIGNATURES[name])
         _packed, scene = _scene_args(tables, gates)
+        wall = len(SPH_KEYS) * tables.counts["n_s_pad"]
+        fx = torch.zeros((2, sums.numel()), dtype=torch.int64, device=dev)
+        # A row a block: at most as many blocks as fit on the card at once.
+        n_rows = torch.cuda.get_device_properties(dev).multi_processor_count * (2048 // _BLOCK)
+        rows = torch.zeros((n_rows, sums.numel() - wall), dtype=torch.float64, device=dev)
         err = lib.soft_level_bwd_launch(
             *scene, *_ptrs((*o, *d, w)), res.data_ptr(),
             *_ptrs(ct_acc), *_ptrs(ct_next if ct_next is not None else (None,) * 7),
-            _ptrs((order,))[0], cts.data_ptr(), sums.data_ptr(), w.numel(), int(is_last),
-            _stream(dev),
+            _ptrs((order,))[0], cts.data_ptr(), sums.data_ptr(), fx.data_ptr(),
+            rows.data_ptr(), n_rows, w.numel(), int(is_last), _stream(dev),
         )
         _raise_on(err, lib, name)
         soft_level_bwd.launches += 1
+        # Sums in an order that does not vary between runs: the spheres'
+        # fixed-point table (integer sums) in float64, the blocks' rows of
+        # the small table in row order.
+        sums += fx[0].double() * _FX_HI + fx[1].double() * _FX_LO
+        sums[wall:] += rows.sum(0)
     return list(cts.unbind(0))
 
 
@@ -853,7 +872,7 @@ _SIGNATURES = {
         "soft_level_error_string": (ctypes.c_char_p, [_I]),
     },
     "soft_level_bwd": {
-        "soft_level_bwd_launch": (_I, _SCENE_ARGTYPES + [_P] * 21 + [_LL, _I, _P]),
+        "soft_level_bwd_launch": (_I, _SCENE_ARGTYPES + [_P] * 23 + [_I, _LL, _I, _P]),
         "soft_level_bwd_smem_bytes": (_LL, [_I, _I]),
         "soft_level_bwd_error_string": (ctypes.c_char_p, [_I]),
     },

@@ -71,21 +71,26 @@ def make_fit_step(
     soft_tau: float = 0.01,
     soft_tau_z: float = 0.05,
     optimizer: Callable[[dict], torch.optim.Optimizer] | None = None,
+    merge: Callable[[Scene, dict], Scene] = merge_params,
+    params_fn: Callable[[Scene], dict] = default_params,
 ) -> tuple[Callable, Callable]:
     """Build ``(init_fn, step_fn)`` for the differentiable fit.
 
-    ``init_fn(scene) -> FitState`` copies ``default_params(scene)`` into
-    leaves that require grad, with ``optimizer(params)`` (the counterpart of
-    the JAX package's ``optimizer`` option: a function of the parameter
-    dict, e.g. for a learning rate per parameter), by default a
-    ``torch.optim.Adam`` at ``learning_rate`` and optax's defaults (betas
-    0.9 and 0.999, eps 1e-8).
-    ``step_fn(state, scene, camera, target) -> (state, loss)`` renders
-    ``merge_params(scene, params)`` at ``width`` x ``height`` and ``depth``
-    (with ``soft``, ``render_soft`` at ``soft_tau`` and ``soft_tau_z``; the
-    soft path's ``depth`` counts its expected-surface reflections), takes
-    the MSE against ``target`` (``[H, W, 3]``), and does one backward and
-    one Adam update, in place. ``device=None`` runs on CUDA.
+    ``init_fn(scene) -> FitState`` copies ``params_fn(scene)`` (by default
+    ``default_params``: the sphere centres and colours) into leaves that
+    require grad, with ``optimizer(params)`` (the counterpart of the JAX
+    package's ``optimizer`` option: a function of the parameter dict, e.g.
+    for a learning rate per parameter), by default a ``torch.optim.Adam`` at
+    ``learning_rate`` and optax's defaults (betas 0.9 and 0.999, eps 1e-8).
+    ``step_fn(state, scene, camera, target, tau=None) -> (state, loss)``
+    renders ``merge(scene, params)`` (by default ``merge_params``) at
+    ``width`` x ``height`` and ``depth`` (with ``soft``, ``render_soft`` at
+    ``soft_tau_z`` and at ``tau``, or ``soft_tau`` when ``tau`` is None: a
+    fit may anneal it step by step, since the soft tables and gates are
+    built from it on every render; the soft path's ``depth`` counts its
+    expected-surface reflections), takes the MSE against ``target``
+    (``[H, W, 3]``), and does one backward and one optimizer update, in
+    place. ``device=None`` runs on CUDA.
     """
     if mesh is not None:
         raise NotImplementedError(
@@ -96,7 +101,7 @@ def make_fit_step(
     def init_fn(scene: Scene) -> FitState:
         params = {
             k: v.detach().clone().requires_grad_(True)
-            for k, v in default_params(scene).items()
+            for k, v in params_fn(scene).items()
         }
         if optimizer is not None:
             opt = optimizer(params)
@@ -106,12 +111,15 @@ def make_fit_step(
             )
         return FitState(params=params, optimizer=opt, step=0)
 
-    def step_fn(state: FitState, scene: Scene, camera: Camera,
-                target: torch.Tensor) -> tuple[FitState, torch.Tensor]:
+    def step_fn(state: FitState, scene: Scene, camera: Camera, target: torch.Tensor,
+                tau=None) -> tuple[FitState, torch.Tensor]:
+        if tau is not None and not soft:
+            raise ValueError("tau is the soft renderer's temperature; this step renders hard")
         state.optimizer.zero_grad(set_to_none=True)
-        full = merge_params(scene, state.params)
+        full = merge(scene, state.params)
         if soft:
-            img = render_soft(full, camera, width, height, tau=soft_tau, tau_z=soft_tau_z,
+            img = render_soft(full, camera, width, height,
+                              tau=soft_tau if tau is None else tau, tau_z=soft_tau_z,
                               tonemap=tonemap, depth=depth, device=device)
         else:
             img = render(full, camera, width, height, depth=depth, tonemap=tonemap,

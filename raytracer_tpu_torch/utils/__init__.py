@@ -1,1 +1,1 @@
-"""Timing helpers for the card."""
+"""Timing on the card, phase timers, profiler traces and fit checkpoints."""

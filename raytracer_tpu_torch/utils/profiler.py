@@ -1,16 +1,24 @@
 """Timing on the card with CUDA events: device time of a call, the frame
 time of a render, the forward and backward of the hard-path gradient, and
-the fit step."""
+the fit step; per-phase host timers (``PhaseTimer``) and a profiler trace
+of a block (``trace_capture``)."""
 
 from __future__ import annotations
 
 import statistics
+import time
+from collections import defaultdict
+from contextlib import contextmanager
+from pathlib import Path
 
 import torch
 
-from raytracer_tpu_torch.core.types import Camera, Scene
+from raytracer_tpu_torch.core.types import Camera, Scene, resolve_device
 
 __all__ = [
+    "PhaseTimer",
+    "trace_capture",
+    "need_cuda",
     "cuda_time_ms",
     "benchmark_render",
     "benchmark_forward_backward",
@@ -23,7 +31,73 @@ __all__ = [
 _SPIN_CYCLES = 1_000_000
 
 
-def _need_cuda():
+@contextmanager
+def trace_capture(out_dir=None, *, device=None):
+    """``torch.profiler`` over the block, written to ``out_dir/trace.json``
+    (Chrome trace format: Perfetto or chrome://tracing). It records the
+    host's ops, and the card's kernels when ``device`` (``None``: CUDA) is
+    a CUDA device; the card is synchronized before the block ends.
+    ``out_dir=None`` is a no-op, so a command-line flag can be passed
+    straight through."""
+    if not out_dir:
+        yield
+        return
+    cuda = resolve_device(device).type == "cuda"
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if cuda:
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    Path(out_dir).mkdir(parents=True, exist_ok=True)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield
+        if cuda:
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(str(Path(out_dir) / "trace.json"))
+
+
+class PhaseTimer:
+    """Wall-time samples per named phase, and their averages (the frame
+    loop's exit report)."""
+
+    def __init__(self):
+        self.samples: dict[str, list[float]] = defaultdict(list)
+
+    @contextmanager
+    def phase(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.samples[name].append(time.perf_counter() - t0)
+
+    def record(self, name: str, seconds: float) -> None:
+        self.samples[name].append(seconds)
+
+    def averages(self) -> dict[str, float]:
+        return {k: sum(v) / len(v) for k, v in self.samples.items() if v}
+
+    def report(self) -> str:
+        """One line a phase: its average in ms and its sample count."""
+        lines = [
+            f"average {name} time: {avg * 1e3:.3f} ms  ({len(self.samples[name])} samples)"
+            for name, avg in sorted(self.averages().items())
+        ]
+        return "\n".join(lines)
+
+    def save(self, path) -> None:
+        """Write the report, then each phase's samples in seconds, to a
+        ``.log`` file."""
+        with open(Path(path), "w") as f:
+            f.write(self.report() + "\n\n")
+            for name, vals in sorted(self.samples.items()):
+                f.write(f"# {name} per-frame seconds\n")
+                f.writelines(f"{v:.9f}\n" for v in vals)
+
+
+def need_cuda(device=None) -> None:
+    """Raise unless ``device`` (``None``: CUDA) is a CUDA device that is
+    present: the timers here measure only on the card."""
+    if torch.device("cuda" if device is None else device).type != "cuda":
+        raise RuntimeError(f"timing on the card needs a CUDA device, not {device!r}")
     if not torch.cuda.is_available():
         raise RuntimeError("timing on the card needs a CUDA device; none is available")
 
@@ -32,7 +106,7 @@ def cuda_time_ms(fn, *, iters: int = 10, warmup: int = 2) -> list[float]:
     """Device milliseconds of each of ``iters`` calls of ``fn()`` on the
     current stream, from a pair of CUDA events around each call, after
     ``warmup`` untimed calls."""
-    _need_cuda()
+    need_cuda()
     for _ in range(warmup):
         fn()
     events = []
@@ -67,7 +141,7 @@ def benchmark_render(
     frame."""
     from raytracer_tpu_torch.render.integrator import render
 
-    _need_cuda()
+    need_cuda()
     scene, camera = scene.to("cuda"), camera.to("cuda")
     render(scene, camera, width, height, depth=depth, tonemap=tonemap, fold=fold)
     times = []
@@ -116,6 +190,7 @@ def benchmark_forward_backward(
     depth: int = 1,
     iters: int = 5,
     rounds: int = 3,
+    fold: str = "auto",
 ) -> dict:
     """Three timings of the image-MSE loss with respect to the sphere
     centers and colours (the fit's parameters), on the card:
@@ -131,19 +206,21 @@ def benchmark_forward_backward(
     profiler defines them. The three are timed in turn within each of
     ``rounds`` rounds (``iters`` calls each, CUDA events), the difference
     and ratio are taken per round, and the medians over rounds reported.
+    ``fold`` is the closest-hit fold, as ``render`` takes it.
     """
     from raytracer_tpu_torch.parallel.train import default_params, merge_params
     from raytracer_tpu_torch.render.integrator import render
 
-    _need_cuda()
+    need_cuda()
     scene, camera = scene.to("cuda"), camera.to("cuda")
     with torch.no_grad():
-        target = render(scene, camera, width, height, depth=depth)
+        target = render(scene, camera, width, height, depth=depth, fold=fold)
     fixed = default_params(scene)
     leaves = {k: v.detach().clone().requires_grad_(True) for k, v in fixed.items()}
 
     def loss(params):
-        img = render(merge_params(scene, params), camera, width, height, depth=depth)
+        img = render(merge_params(scene, params), camera, width, height, depth=depth,
+                     fold=fold)
         return torch.mean((img - target) ** 2)
 
     def forward():
@@ -203,7 +280,7 @@ def benchmark_fit_step(
     device op, fitting ``scene`` to a black image."""
     from raytracer_tpu_torch.parallel.train import make_fit_step
 
-    _need_cuda()
+    need_cuda()
     scene, camera = scene.to("cuda"), camera.to("cuda")
     target = torch.zeros((height, width, 3), dtype=torch.float32, device="cuda")
     init_fn, step_fn = make_fit_step(width, height, depth=depth, soft=soft, optimizer=optimizer)

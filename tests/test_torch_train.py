@@ -155,3 +155,49 @@ def test_fit_rejects_soft_and_mesh():
     assert state.step == 1 and np.isfinite(float(loss)) and float(loss) > 0.0
     assert all(bool(torch.isfinite(v.grad).all()) and float(v.grad.abs().max()) > 0.0
                for v in state.params.values())
+
+
+def _wall_colour(scene):
+    return {"wall_color": scene.walls.material.color}
+
+
+def _merge_wall_colour(scene, params):
+    walls = scene.walls
+    return scene.replace(walls=walls.replace(
+        material=walls.material.replace(color=params["wall_color"])))
+
+
+def test_params_fn_and_merge_fit_another_leaf_as_jax_does():
+    """``params_fn`` and ``merge`` fit a leaf the default pair does not know
+    (the walls' colour), as the JAX package's ``make_fit_step`` does with
+    the same two functions (tests/test_soft.py and tests/test_parallel.py
+    pass a ``params_fn``). One step from the same start against the same
+    target (the demo scene, 32x24, depth 1): the state holds that leaf alone, the
+    loss agrees to
+    rtol 1e-3 (the two normalise the camera rays with rsqrts that differ in
+    the last bit, which flips a few silhouette pixels), and the leaf agrees
+    to 1e-6 (Adam's first step moves each entry by the learning rate times
+    the sign of its gradient, which those pixels do not flip)."""
+    from raytracer_tpu.parallel.train import make_fit_step as j_make_fit_step
+
+    w, h, depth = 32, 24, 1
+    jscene, jcam = jscenes.reference_demo_scene(), jscenes.reference_demo_camera()
+    scene = Scene.from_numpy(scene_to_numpy(jscene, np.float32), device="cpu")
+    cam = tscenes.reference_demo_camera(device="cpu")
+    with torch.no_grad():
+        target = render(scene, cam, w, h, depth=depth, device="cpu")
+    moved = scene.walls.material.color * 0.7
+    start = _merge_wall_colour(scene, {"wall_color": moved})
+    init_fn, step_fn = make_fit_step(w, h, depth=depth, device="cpu",
+                                     params_fn=_wall_colour, merge=_merge_wall_colour)
+    state, loss = step_fn(init_fn(start), start, cam, target)
+    assert list(state.params) == ["wall_color"] and state.step == 1
+
+    jstart = _merge_wall_colour(jscene, {"wall_color": jnp.asarray(moved.numpy())})
+    j_init, j_step = j_make_fit_step(w, h, depth=depth, params_fn=_wall_colour,
+                                     merge=_merge_wall_colour)
+    jstate, jloss = j_step(j_init(jstart), jstart, jcam, jnp.asarray(target.numpy()))
+    assert float(loss) == pytest.approx(float(jloss), rel=1e-3)
+    got = state.params["wall_color"].detach().numpy()
+    assert not np.array_equal(got, moved.numpy())
+    np.testing.assert_allclose(got, np.asarray(jstate.params["wall_color"]), rtol=0, atol=1e-6)

@@ -44,7 +44,7 @@ from raytracer_tpu_torch.ops import _build, cuda_soft  # noqa: E402
 
 SOURCES = ("soft_level", "soft_level_bwd")
 FWD_TILE = "constexpr int TILE_C = 32;"
-BWD_TILE = "constexpr int TILE_C = 64;"
+BWD_TILE = "constexpr int TILE_C = 32;"
 MASKS = "constexpr int MASK_WORDS = 8;"
 WORDS = "      for (int wd = 0; wd < words; ++wd) {"
 FWD_MIN = "constexpr int MIN_BLOCKS = 4;"
@@ -54,8 +54,7 @@ VARIANTS = {
     "package": {},
     "fwd_tile64": {"soft_level.cu": (FWD_TILE, FWD_TILE.replace("32", "64"))},
     "fwd_tile128": {"soft_level.cu": (FWD_TILE, FWD_TILE.replace("32", "128"))},
-    "bwd_tile32": {"soft_level_bwd.cu": (BWD_TILE, BWD_TILE.replace("64", "32"))},
-    "bwd_tile128": {"soft_level_bwd.cu": (BWD_TILE, BWD_TILE.replace("64", "128"))},
+    "bwd_tile64": {"soft_level_bwd.cu": (BWD_TILE, BWD_TILE.replace("32", "64"))},
     "fwd_min_blocks3": {"soft_level.cu": (FWD_MIN, FWD_MIN.replace("4", "3"))},
     "bwd_min_blocks3": {"soft_level_bwd.cu": (BWD_MIN, BWD_MIN.replace("2", "3"))},
     "no_mask_reuse": {"soft_common.cuh": (MASKS, MASKS.replace("8", "0"))},
