@@ -39,7 +39,16 @@ rendered and resumed for 10 steps, ``render`` of c3 (the PNG against
 ``render`` pixel for pixel), ``render --depth-only`` of c1, ``render`` of
 c5 on one card, ``--mesh 2,1`` refused, ``bench --fwd-bwd --trace`` of c3
 (its trace naming both whole-trace kernels) and ``view`` of c2 for 3
-frames; the closest-hit
+frames; the distribution phase (parallel/): on a one-rank NCCL group c5
+through ``render_sharded`` on the 1x1 mesh and through ``render --mesh
+1,1`` (bit for bit with ``render``), sprint3 1920x1080 d3 on it, and three
+c4 soft fit steps with the 1x1 mesh against three without (bit for bit);
+then two gloo ranks on the one card (``parallel/dryrun.spawn``): grid-1024
+1920x1080 d3 on a (2, 1) mesh (bit for bit with ``render``) and on a (1, 2)
+mesh (each level's combined (t, index) and the image bit for bit with the
+single-rank per-level loop, within 1e-4 of ``render``), and meshed fit
+steps at (2, 1) (sprint3, grid-1024, c4 soft) against single-rank steps;
+the closest-hit
 kernels (fold_flat, fold_shortlist, fold_shortlist_hit) against their plain
 versions on eight workloads (primary and level-1 bounce rays, an all-dead
 mask; up to grid-2048) and against each other, their times and bounds (on
@@ -144,6 +153,11 @@ trace_common.cuh; then prints them as one JSON line, and exits non-zero if
 the kernel differs from its plain version or mirror. ``--flat-compare`` runs
 it as ``--soft-compare`` does. The five modes share one harness
 (``COMPARE_MODES``, ``only``, ``compare``).
+
+    python3 chip_smoke.py --dist-only
+
+``--dist-only`` builds the kernels and runs the distribution phase alone,
+and exits non-zero if any of its checks fails.
 """
 
 from __future__ import annotations
@@ -2131,7 +2145,8 @@ def drive_app_cli(out_dir: Path, device) -> dict:
     ``render_depth``), ``render`` of c5 on one card (mesh "auto": the
     per-level chain, 4 row chunks; its PNG equals ``to_u8`` of a
     ``render`` of the same config, which is not constant and has no more
-    non-finite pixels than the main path's c5 check allows), ``--mesh 2,1`` refused, ``bench`` of c3
+    non-finite pixels than the main path's c5 check allows), ``--mesh 2,1`` refused in one
+    process (it needs two ranks under torchrun), ``bench`` of c3
     with ``--fwd-bwd --trace`` (one JSON line; ``trace.json`` names both
     whole-trace kernels), and ``view`` of c2 for 3 frames (3 frames of ANSI,
     a log of both phases)."""
@@ -2176,8 +2191,8 @@ def drive_app_cli(out_dir: Path, device) -> dict:
         run_cli(["render", "--config", "c2-sprint3-1bounce", "--mesh", "2,1", "-o",
                  str(out_dir / "mesh.png")])
         r["mesh_2_1_refused"] = False
-    except NotImplementedError:
-        r["mesh_2_1_refused"] = True
+    except ValueError as exc:  # one process: a 2x1 mesh needs two ranks
+        r["mesh_2_1_refused"] = "torchrun" in str(exc)
 
     trace_dir = out_dir / "trace"
     rc, out, launches = run_cli(["bench", "--config", c3.name, "--fwd-bwd", "--trace",
@@ -2252,6 +2267,356 @@ def print_app(app: dict):
     for name, v in app["cli"].items():
         print(f"app cli {name}: {v}", flush=True)
     print(f"app plain versions called on CUDA: {app['plain_calls']}; ok={app['ok']}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# The distribution phase (parallel/): the sharded paths on a one-rank NCCL
+# group, then on two gloo ranks that share the one card
+# ---------------------------------------------------------------------------
+
+# Seconds the two-rank run may take, spawn and CUDA start-up included; past
+# them ``spawn`` ends both ranks and raises. (Each collective on its own waits
+# at most ``parallel.mesh.TIMEOUT_S`` for its peers.)
+DIST_TIMEOUT_S = 240.0
+# The CPU tests' tolerances for a meshed fit step against the single-rank
+# step (tests/test_torch_sharded.py, after the JAX package's
+# tests/test_parallel.py): (loss rtol, parameter atol, gradient error as a
+# share of the leaf's largest gradient).
+DIST_FIT_TOL = {"hard": (1e-5, 1e-5, 1e-5), "soft": (1e-4, 2e-5, 1e-4)}
+# (width, height, depth): c5 (grid-1024) on the one-rank mesh; sprint3 there,
+# and grid-1024 and the fit steps on two ranks (the c4 soft fit at depth 1).
+DIST_C5 = (3840, 2160, 4)
+DIST_FRAME = (1920, 1080, 3)
+
+
+def calls_event_ms(fn, iters: int) -> list:
+    """CUDA-event milliseconds of each of ``iters`` calls of ``fn``, each
+    started with nothing queued ahead and ended by its last device op."""
+    out = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end))
+    return out
+
+
+def in_turns(fns: dict, iters: int) -> dict:
+    """``calls_event_ms`` of two calls (a dict of two), timed in turns
+    (a, b, b, a), ``iters`` calls a turn: each name's milliseconds."""
+    a, b = fns
+    out = {a: [], b: []}
+    for name in (a, b, b, a):
+        out[name] += calls_event_ms(fns[name], iters)
+    return out
+
+
+def counted_call(fn):
+    """``fn()`` with every kernel's launch count set to 0 just before and
+    read just after: (its result, the counts)."""
+    reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, read_launches()
+
+
+def fit_steps(make, start, camera, target, steps: int) -> dict:
+    """``steps`` steps of ``make()``'s ``(init_fn, step_fn)`` from ``start``:
+    each step's loss (a tensor), the launches of each step, the final
+    parameters (detached clones) and the gradients the last step took."""
+    init_fn, step_fn = make()
+    state = init_fn(start)
+    losses, per_step = [], []
+    for _ in range(steps):
+        (state, loss), launches = counted_call(lambda: step_fn(state, start, camera, target))
+        losses.append(loss)
+        per_step.append(launches)
+    return dict(losses=losses, per_step=per_step,
+                params={k: v.detach().clone() for k, v in state.params.items()},
+                grads={k: v.grad.clone() for k, v in state.params.items()})
+
+
+def fit_close(got: dict, want: dict, kind: str) -> dict:
+    """A meshed fit step against the single-rank one, to ``DIST_FIT_TOL``:
+    the loss, the parameters, and the gradients the step took (summed over
+    the mesh), whose error is a share of the leaf's largest gradient (Adam's
+    first update is about ``lr * sign(g)``, so the parameters alone would
+    pass a gradient off by a scale)."""
+    rtol, atol, gtol = DIST_FIT_TOL[kind]
+    loss_g, loss_w = float(got["losses"][-1]), float(want["losses"][-1])
+    err = {k: max_err(got["params"][k], want["params"][k]) for k in want["params"]}
+    gerr = {k: max_err(got["grads"][k], g) / float(g.abs().max())
+            for k, g in want["grads"].items()}
+    finite = all(bool(torch.isfinite(v).all()) for v in got["params"].values())
+    return dict(loss=loss_g, loss_single=loss_w, loss_rel_err=abs(loss_g - loss_w) / abs(loss_w),
+                param_max_abs_err=err, grad_err_of_largest=gerr,
+                launches_per_step=got["per_step"][-1],
+                ok=(finite and abs(loss_g - loss_w) <= rtol * abs(loss_w)
+                    and all(v <= atol for v in err.values())
+                    and all(v <= gtol for v in gerr.values())))
+
+
+def drive_dist_one_rank(device) -> dict:
+    """World size 1 on NCCL (a ``tcp://127.0.0.1`` group of one rank, so
+    that the mesh's collectives run through NCCL on the card): c5 (grid-1024
+    3840x2160 d4) through ``render_sharded`` on the 1x1 mesh and through
+    ``cli render --config c5-4k-1024sphere --mesh 1,1`` (the image equals
+    ``render`` bit for bit, the PNG ``to_u8`` of it; ray_stats 4,
+    trace_level 20 as ``render``), sprint3 1920x1080 d3 on the 1x1 mesh (bit
+    for bit, one trace_whole), and three c4 soft fit steps (grid-64
+    1920x1080 d1) with the 1x1 mesh against three without: the losses and
+    the parameters bit-equal."""
+    import torch.distributed as dist
+
+    from raytracer_tpu_torch import make_fit_step, render, render_sharded
+    from raytracer_tpu_torch.io import load_image, to_u8
+    from raytracer_tpu_torch.models import scenes
+    from raytracer_tpu_torch.parallel import comm, initialize_distributed, make_mesh
+    from raytracer_tpu_torch.parallel.dryrun import free_port
+
+    r = {}
+    initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0, device=device)
+    try:
+        mesh = make_mesh(device=device)
+        r["backend"] = dist.get_backend()
+        camera = scenes.reference_demo_camera(device=device)
+        grid = scenes.grid_sphere_scene(1024, device=device)
+        cw, ch, cd = DIST_C5
+        with torch.no_grad():
+            want = render(grid, camera, cw, ch, depth=cd, device=device)
+            with comm.census() as log:
+                img, launches = counted_call(
+                    lambda: render_sharded(grid, camera, cw, ch, mesh=mesh, depth=cd))
+            ms = in_turns({
+                "render": lambda: render(grid, camera, cw, ch, depth=cd, device=device),
+                "render_sharded": lambda: render_sharded(grid, camera, cw, ch, mesh=mesh,
+                                                         depth=cd)}, 3)
+        r["c5"] = dict(launches=launches, same=same_planes(img, want), frame_ms=ms,
+                       collectives=log, image=image_stats(img))
+        r["c5"]["ok"] = (r["c5"]["same"] and img.shape == (ch, cw, 3)
+                         and launches == launches_of(ray_stats=4, trace_level=20)
+                         and log == [("all_gather", 1, cw * ch * 3, "torch.float32")])
+        with tempfile.TemporaryDirectory() as tmp:
+            png = Path(tmp) / "c5.png"
+            rc, out, launches = run_cli(["render", "--config", "c5-4k-1024sphere", "--mesh",
+                                         "1,1", "--width", str(cw), "--height", str(ch),
+                                         "--device", str(device), "-o", str(png)])
+            png_ok = np.array_equal(load_image(png), to_u8(want))
+        r["cli_c5"] = dict(rc=rc, launches=launches, png_equal=png_ok, note="mesh=1x1" in out,
+                           ok=(rc == 0 and png_ok and "mesh=1x1" in out
+                               and launches == launches_of(ray_stats=4, trace_level=20)))
+        sprint3 = scenes.sprint3_scene(device=device)
+        w, h, depth = DIST_FRAME
+        with torch.no_grad():
+            want = render(sprint3, camera, w, h, depth=depth, device=device)
+            img, launches = counted_call(
+                lambda: render_sharded(sprint3, camera, w, h, mesh=mesh, depth=depth))
+            ms = in_turns({
+                "render": lambda: render(sprint3, camera, w, h, depth=depth, device=device),
+                "render_sharded": lambda: render_sharded(sprint3, camera, w, h, mesh=mesh,
+                                                         depth=depth)}, 5)
+        r["sprint3"] = dict(launches=launches, same=same_planes(img, want), frame_ms=ms,
+                            ok=same_planes(img, want) and launches == launches_of(trace_whole=1))
+        _, start, camera, target = soft_fit_start(device, width=w, height=h)
+        runs = {}
+        for name, m in (("single", None), ("mesh_1x1", mesh)):
+            with comm.census() as log:
+                runs[name] = fit_steps(
+                    lambda m=m: make_fit_step(w, h, depth=1, soft=True, device=device,
+                                              mesh=m), start, camera, target, 3)
+            runs[name]["collectives"] = len(log)
+        one, single = runs["mesh_1x1"], runs["single"]
+        same = (all(torch.equal(a, b) for a, b in zip(one["losses"], single["losses"]))
+                and all(torch.equal(one["params"][k], v) for k, v in single["params"].items()))
+        r["c4_fit"] = dict(losses=[float(v) for v in one["losses"]], bit_equal=same,
+                           launches_per_step=one["per_step"],
+                           collectives_3_steps=one["collectives"],
+                           ok=(same and one["collectives"] == 3 * 3
+                               and all(p == launches_of(soft_level=2, soft_level_bwd=2)
+                                       for p in one["per_step"])))
+    finally:
+        dist.destroy_process_group()
+    r["ok"] = all(v["ok"] for v in r.values() if isinstance(v, dict))
+    return r
+
+
+def dist_two_ranks(device: str, frame=DIST_FRAME) -> dict:
+    """One of two gloo ranks on the one card (``parallel/dryrun.spawn``):
+    grid-1024 1920x1080 d3 on a (2, 1) mesh (the gathered image against
+    ``render``, bit for bit; ray_stats 1 and trace_level 4 a rank) and on a
+    (1, 2) mesh (every level's combined (t, index) and the image against
+    the single-rank per-level loop around ``closest_hit_soa``, bit for bit;
+    the image within 1e-4 of ``render``; fold_shortlist_hit 4 a rank; the
+    bytes the hit combine moves a level); then one hard fit step at (2, 1)
+    on sprint3 1920x1080 d3 and one on grid-1024 (``level_fit_optimizer``),
+    and one c4 soft fit step, each against the single-rank step on this
+    rank to ``DIST_FIT_TOL``. Each mesh's frame time from CUDA events around
+    the whole call, on this rank."""
+    import torch.distributed as dist
+
+    from raytracer_tpu_torch import closest_hit_soa, make_fit_step, render, render_sharded
+    from raytracer_tpu_torch.models import scenes
+    from raytracer_tpu_torch.ops.tonemap import reinhard_tonemap
+    from raytracer_tpu_torch.ops.trace import render_tile
+    from raytracer_tpu_torch.parallel import comm, make_mesh
+    from raytracer_tpu_torch.parallel import render as prender
+
+    r = {"rank": dist.get_rank(), "backend": dist.get_backend()}
+    mesh21 = make_mesh(2, 1, device=device)
+    mesh12 = make_mesh(1, 2, device=device)
+    camera = scenes.reference_demo_camera(device=device)
+    grid = scenes.grid_sphere_scene(1024, device=device)
+    w, h, depth = frame
+    with torch.no_grad():
+        want = render(grid, camera, w, h, depth=depth, device=device)
+        img, launches = counted_call(
+            lambda: render_sharded(grid, camera, w, h, mesh=mesh21, depth=depth))
+        ms = calls_event_ms(lambda: render_sharded(grid, camera, w, h, mesh=mesh21, depth=depth), 5)
+        r["px_2x1"] = dict(launches=launches, same=same_planes(img, want), frame_ms=ms,
+                           ok=(same_planes(img, want)
+                               and launches == launches_of(ray_stats=1, trace_level=4)))
+
+        levels, combine = [], prender._combine_hits
+
+        def recorded(rec, group):
+            out = combine(rec, group)
+            levels.append((out.t.clone(), out.prim_index.clone()))
+            return out
+
+        prender._combine_hits = recorded
+        try:
+            with comm.census() as log:
+                img, launches = counted_call(
+                    lambda: render_sharded(grid, camera, w, h, mesh=mesh12, depth=depth))
+        finally:
+            prender._combine_hits = combine
+        ms = calls_event_ms(lambda: render_sharded(grid, camera, w, h, mesh=mesh12, depth=depth), 3)
+        ref_levels = []
+
+        def hit(sc, o, d, active=None):
+            rec = closest_hit_soa(sc, o, d, active=active)
+            ref_levels.append((rec.t, rec.prim_index))
+            return rec
+
+        loop = reinhard_tonemap(render_tile(grid, camera, w, h, depth=depth,
+                                            closest_hit_fn=hit).stacked())
+    levels_same = len(levels) == len(ref_levels) == depth + 1 and all(
+        same_planes(a[0], b[0]) and torch.equal(a[1], b[1]) for a, b in zip(levels, ref_levels))
+    finite = torch.isfinite(img) & torch.isfinite(want)
+    near = torch.where(finite, (img - want).abs() <= 1e-4,
+                       (torch.isfinite(img) == torch.isfinite(want)))
+    level_bytes = sum(n * 4 for _, _, n, _ in log[:-1]) / (depth + 1)
+    r["prim_1x2"] = dict(
+        launches=launches, levels_same=levels_same, same_as_loop=same_planes(img, loop),
+        pixels_past_1e4_of_render=int((~near.all(dim=-1)).sum()),
+        max_abs_err_to_render=max_err(img[finite], want[finite]), frame_ms=ms,
+        collectives_a_level=log[:3], combine_bytes_a_level=level_bytes,
+        ok=(levels_same and same_planes(img, loop) and bool(near.all())
+            and launches["fold_shortlist_hit"] == depth + 1
+            and all(v == 0 for k, v in launches.items()
+                    if k not in ("fold_shortlist_hit", "ray_stats"))))
+
+    fits = {}
+    for name, (start, target, kw, kind) in {
+            "hard_sprint3": (*fit_start(device, w, h)[::2], {"depth": depth}, "hard"),
+            "hard_grid1024": (*level_fit_start(device, w, h)[::2],
+                              {"depth": depth, "optimizer": level_fit_optimizer}, "hard"),
+            "soft_c4": (*soft_fit_start(device, width=w, height=h)[1::2],
+                        {"depth": 1, "soft": True}, "soft"),
+    }.items():
+        runs = [fit_steps(lambda m=m: make_fit_step(w, h, device=device, mesh=m, **kw),
+                          start, camera, target, 1) for m in (mesh21, None)]
+        fits[name] = fit_close(*runs, kind)
+    r["fits_2x1"] = fits
+    r["ok"] = (r["px_2x1"]["ok"] and r["prim_1x2"]["ok"]
+               and all(v["ok"] for v in fits.values()))
+    return r
+
+
+def drive_dist(device) -> dict:
+    """The distribution phase: ``drive_dist_one_rank`` in this process,
+    then ``dist_two_ranks`` on two spawned gloo ranks on ``device``."""
+    from raytracer_tpu_torch.parallel.dryrun import spawn
+
+    one = drive_dist_one_rank(device)
+    t0 = time.perf_counter()
+    two = spawn(dist_two_ranks, 2, args=(device,), device=device, backend="gloo",
+                timeout_s=DIST_TIMEOUT_S)
+    return dict(one_rank=one, two_ranks=two, two_ranks_seconds=time.perf_counter() - t0,
+                ok=one["ok"] and all(r["ok"] for r in two))
+
+
+def dist_failures(d: dict) -> list:
+    """The parts of the distribution phase that failed, by name."""
+    parts = [f"one rank {k}" for k, v in d["one_rank"].items()
+             if isinstance(v, dict) and not v["ok"]]
+    for r in d["two_ranks"]:
+        parts += [f"rank {r['rank']} of 2 {k}" for k in ("px_2x1", "prim_1x2") if not r[k]["ok"]]
+        parts += [f"rank {r['rank']} of 2 fit {k}" for k, v in r["fits_2x1"].items()
+                  if not v["ok"]]
+    return parts
+
+
+def _rounded(times: dict) -> dict:
+    return {k: [round(v, 4) for v in vs] for k, vs in times.items()}
+
+
+def print_dist(d: dict, smi: str):
+    one = d["one_rank"]
+    print(f"dist one rank ({one['backend']}, world 1, 1x1 mesh): c5 grid1024 3840x2160 d4 "
+          f"render_sharded: ok={one['c5']['ok']} bit_equal_render={one['c5']['same']} "
+          f"launches={one['c5']['launches']} collectives={one['c5']['collectives']} "
+          f"image={one['c5']['image']} frame_ms in turns (render, sharded, sharded, render; "
+          f"CUDA events) {_rounded(one['c5']['frame_ms'])}; "
+          f"cli render --mesh 1,1: {one['cli_c5']}", flush=True)
+    print(f"dist one rank sprint3 1920x1080 d3 render_sharded: ok={one['sprint3']['ok']} "
+          f"bit_equal_render={one['sprint3']['same']} launches={one['sprint3']['launches']} "
+          f"frame_ms in turns {_rounded(one['sprint3']['frame_ms'])}", flush=True)
+    print(f"dist one rank c4 soft fit, 3 steps with the 1x1 mesh against 3 without: "
+          f"{one['c4_fit']}", flush=True)
+    for r in d["two_ranks"]:
+        px, prim = r["px_2x1"], r["prim_1x2"]
+        print(f"dist rank {r['rank']} of 2 ({r['backend']}, both ranks on one card: no scaling "
+              f"figure) grid1024 1920x1080 d3 mesh 2x1: ok={px['ok']} bit_equal_render="
+              f"{px['same']} launches={px['launches']} frame_ms="
+              f"{[round(v, 4) for v in px['frame_ms']]}", flush=True)
+        print(f"dist rank {r['rank']} of 2 grid1024 1920x1080 d3 mesh 1x2: ok={prim['ok']} "
+              f"levels_equal_single_rank_loop={prim['levels_same']} "
+              f"image_equal_loop={prim['same_as_loop']} pixels_past_1e-4_of_render="
+              f"{prim['pixels_past_1e4_of_render']} max_abs_err_to_render="
+              f"{prim['max_abs_err_to_render']:.3g} launches={prim['launches']} "
+              f"collectives_a_level={prim['collectives_a_level']} combine_bytes_a_level="
+              f"{prim['combine_bytes_a_level']:.0f} frame_ms="
+              f"{[round(v, 4) for v in prim['frame_ms']]}", flush=True)
+        for name, f in r["fits_2x1"].items():
+            print(f"dist rank {r['rank']} of 2 fit step mesh 2x1 {name}: {f}", flush=True)
+    print(f"dist two ranks: {d['two_ranks_seconds']:.1f} s with spawn and start-up; "
+          f"card {smi}; ok={d['ok']}", flush=True)
+
+
+def dist_only() -> int:
+    """``--dist-only``: the card's line, the build, the distribution phase."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 1
+    from raytracer_tpu_torch.ops import _build
+
+    smi = card_line()
+    print(smi, flush=True)
+    _build.build(["trace_whole", "trace_whole_bwd", "ray_stats", "trace_level",
+                  "trace_level_bwd", "soft_level", "soft_level_bwd", "fold_flat",
+                  "fold_shortlist"])
+    d = drive_dist("cuda:0")
+    print_dist(d, smi)
+    failed = dist_failures(d)
+    if failed:
+        print(f"chip_smoke: --dist-only: failed: {'; '.join(failed)}", file=sys.stderr)
+        return 1
+    return 0
 
 
 # ---------------------------------------------------------------------------
@@ -4561,6 +4926,13 @@ def main() -> int:
         check(f"app {part}", False)
     print_app(app)
 
+    # ---- the distribution phase: parallel/ on a one-rank NCCL group, then two
+    # gloo ranks on the one card ----
+    dist_r = drive_dist("cuda:0")
+    for part in dist_failures(dist_r):
+        check(f"dist {part}", False)
+    print_dist(dist_r, smi)
+
     # ---- the closest-hit API: render_depth, render(fold=...), the per-level
     # loop around closest_hit_soa (kernels 8-10) ----
     hit_results = []
@@ -4844,6 +5216,22 @@ def main() -> int:
             "check": (all(r["ok"] for r in hit_results) and all(v["same"] for v in timed)
                       and (name != "fold_flat" or (not flat_failed(fdiag) and fplan))),
         })
+    # The sharded paths' launches (per rank on the two-rank meshes).
+    one, two = dist_r["one_rank"], dist_r["two_ranks"][0]
+    dist_paths = {
+        "sharded_c5_1x1": one["c5"]["launches"],
+        "cli_render_c5_mesh_1x1": one["cli_c5"]["launches"],
+        "sharded_sprint3_1x1": one["sprint3"]["launches"],
+        "sharded_soft_fit_c4_1x1_3_steps": {
+            k: sum(p[k] for p in one["c4_fit"]["launches_per_step"]) for k in _counted()},
+        "sharded_grid1024_2x1_a_rank": two["px_2x1"]["launches"],
+        "sharded_grid1024_1x2_a_rank": two["prim_1x2"]["launches"],
+        **{f"fit_step_2x1_{k}_a_rank": v["launches_per_step"]
+           for k, v in two["fits_2x1"].items()},
+    }
+    for k in kernels:
+        k["launches_by_path"].update(
+            {path: v[k["name"]] for path, v in dist_paths.items() if v[k["name"]]})
     print(json.dumps({"kernels": kernels}), flush=True)
     if failed:
         print(f"chip_smoke: {len(failed)} check(s) failed: {'; '.join(failed)}", file=sys.stderr)
@@ -4859,6 +5247,8 @@ if __name__ == "__main__":
     argv = sys.argv[1:]
     if "--root" in argv:
         sys.path.insert(0, argv[argv.index("--root") + 1])
+    if "--dist-only" in argv:
+        sys.exit(dist_only())
     for mode in COMPARE_MODES:
         if f"--{mode}-compare" in argv:
             sys.exit(compare(mode, argv[argv.index(f"--{mode}-compare") + 1],

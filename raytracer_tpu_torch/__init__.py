@@ -12,13 +12,16 @@ backward ``csrc/soft_level_bwd.cu``, ``ops/cuda_soft.py``); the closest-hit
 API (``closest_hit_soa``, the depth pass ``render_depth`` and the fold
 selectors of ``render(fold=...)``) through the fold kernels
 ``csrc/fold_shortlist.cu`` and ``csrc/fold_flat.cu`` (``ops/cuda_hit.py``);
-and the fit step (``parallel/train.py``, hard or soft). The user's entry
-points: the run configurations (``app/config.py``: ``RenderConfig``,
-``BASELINE_CONFIGS``), the fit app (``app/fit.py``: ``run_fit``, with
-``utils/checkpoint.py``), the command line (``app/cli.py``: ``render``,
-``bench``, ``fit``, ``view``, ``configs``), the terminal viewer
-(``app/viewer.py``, ``ops/camera_ops.py``, ``io/term.py``), image files
-(``io/images.py``) and the phase timer and profiler trace
+the fit step (``parallel/train.py``, hard or soft); and distribution over
+``torch.distributed`` ranks (``parallel/``: ``make_mesh``, the pixel-row and
+sphere-axis sharded ``render_sharded``, the sharded soft render and the
+meshed fit step; ``parallel/dryrun.py`` runs them in processes on one host).
+The user's entry points: the run configurations (``app/config.py``:
+``RenderConfig``, ``BASELINE_CONFIGS``), the fit app (``app/fit.py``:
+``run_fit``, with ``utils/checkpoint.py``), the command line
+(``app/cli.py``: ``render``, ``bench``, ``fit``, ``view``, ``configs``), the
+terminal viewer (``app/viewer.py``, ``ops/camera_ops.py``, ``io/term.py``),
+image files (``io/images.py``) and the phase timer and profiler trace
 (``utils/profiler.py``). Entry points run on CUDA unless called with
 ``device="cpu"`` (``--device cpu`` on the command line), which runs the
 kernels' plain PyTorch versions.
@@ -38,6 +41,7 @@ from raytracer_tpu_torch.core.types import (
 )
 from raytracer_tpu_torch.core.v3 import V3
 from raytracer_tpu_torch.diff.soft import render_soft, trace_soft
+from raytracer_tpu_torch.parallel import make_mesh, render_sharded
 from raytracer_tpu_torch.parallel.train import default_params, make_fit_step, merge_params
 from raytracer_tpu_torch.ops.trace import closest_hit_soa
 from raytracer_tpu_torch.render.integrator import render, render_depth, trace_rays
@@ -52,6 +56,8 @@ __all__ = [
     "trace_rays",
     "render_soft",
     "trace_soft",
+    "make_mesh",
+    "render_sharded",
     "make_fit_step",
     "default_params",
     "merge_params",

@@ -11,6 +11,12 @@ given (the kernels' plain PyTorch versions). Usage:
     python -m raytracer_tpu_torch.app.cli fit --steps 600 -o fit_out/
     python -m raytracer_tpu_torch.app.cli view          # WASD/arrows + q, in-terminal
     python -m raytracer_tpu_torch.app.cli configs
+    torchrun --nproc-per-node 2 -m raytracer_tpu_torch.app.cli render \\
+        --config c5-4k-1024sphere --mesh 2,1 -o c5.png   # one rank a device
+
+With ``--mesh`` (or a config's own mesh) ``render``, ``bench`` and ``fit``
+shard over the ranks torchrun starts (``RenderConfig.build_mesh``); only
+rank 0 writes files and prints.
 """
 
 from __future__ import annotations
@@ -48,9 +54,9 @@ def _build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--no-tonemap", action="store_true")
         sp.add_argument(
             "--mesh", default=None, metavar="PX,PRIM|auto|none",
-            help="shard over a device mesh: 'auto' (all local devices on the pixel "
-            "axis; one device renders alone), 'PX,PRIM' (explicit shape), 'none' "
-            "(override a config's mesh to one device); sharding is not ported yet",
+            help="shard over a mesh of ranks (torchrun, one rank a device): 'auto' (every "
+            "rank on the pixel axis; one rank renders alone), 'PX,PRIM' (explicit "
+            "shape, PX*PRIM ranks), 'none' (override a config's mesh to one device)",
         )
         sp.add_argument("--device", default=argparse.SUPPRESS, help=device_help)
 
@@ -133,21 +139,30 @@ def depth_image(depth_map: np.ndarray) -> np.ndarray:
 
 def cmd_render(args) -> int:
     from raytracer_tpu_torch.io import save_image
+    from raytracer_tpu_torch.parallel.hosts import is_lead
+    from raytracer_tpu_torch.parallel.render import render_sharded
     from raytracer_tpu_torch.render.integrator import render, render_depth
 
     cfg = _config_from_args(args)
-    cfg.build_mesh()  # one device, or raises
+    mesh = cfg.build_mesh(device=args.device)
     scene, camera = cfg.build_scene(device=args.device), cfg.build_camera(device=args.device)
     t0 = time.perf_counter()
     with torch.no_grad():
         if cfg.depth_only:
             depth_map = render_depth(scene, camera, cfg.width, cfg.height, device=args.device)
             img = depth_image(depth_map.cpu().numpy())
+        elif mesh is not None:
+            img = render_sharded(scene, camera, cfg.width, cfg.height, mesh=mesh,
+                                 depth=cfg.depth, tonemap=cfg.tonemap,
+                                 fold=cfg.fold).cpu().numpy()
         else:
             img = render(scene, camera, cfg.width, cfg.height, depth=cfg.depth,
                          tonemap=cfg.tonemap, fold=cfg.fold, device=args.device).cpu().numpy()
+    if not is_lead():
+        return 0
     out = save_image(args.output, img)
-    print(f"{cfg.name}: {cfg.width}x{cfg.height} depth={cfg.depth} -> {out}  "
+    mesh_note = f" mesh={'x'.join(str(s) for s in mesh.devices.shape)}" if mesh else ""
+    print(f"{cfg.name}: {cfg.width}x{cfg.height} depth={cfg.depth}{mesh_note} -> {out}  "
           f"({time.perf_counter() - t0:.2f}s inc. kernel build)")
     return 0
 
@@ -160,14 +175,16 @@ def cmd_bench(args) -> int:
         trace_capture,
     )
 
+    from raytracer_tpu_torch.parallel.hosts import is_lead
+
     need_cuda(args.device)  # the timers measure only on the card
     cfg = _config_from_args(args)
-    cfg.build_mesh()  # one device, or raises
+    mesh = cfg.build_mesh(device=args.device)
     scene, camera = cfg.build_scene(device=args.device), cfg.build_camera(device=args.device)
-    with trace_capture(args.trace, device=args.device):
+    with trace_capture(args.trace if is_lead() else None, device=args.device):
         res = benchmark_render(
             scene, camera, cfg.width, cfg.height,
-            depth=cfg.depth, iters=args.iters, fold=cfg.fold, tonemap=cfg.tonemap,
+            depth=cfg.depth, iters=args.iters, fold=cfg.fold, tonemap=cfg.tonemap, mesh=mesh,
         )
         res["config"] = cfg.name
         if args.fwd_bwd:
@@ -175,8 +192,11 @@ def cmd_bench(args) -> int:
             res.update(
                 benchmark_forward_backward(
                     scene, camera, cfg.width, cfg.height, depth=cfg.depth, fold=cfg.fold,
+                    mesh=mesh,
                 )
             )
+    if not is_lead():
+        return 0
     if args.trace:
         res["trace_dir"] = args.trace
     print(json.dumps(res))
@@ -208,7 +228,8 @@ def cmd_view(args) -> int:
     from raytracer_tpu_torch.app.viewer import run_viewer
 
     cfg = _config_from_args(args)
-    cfg.build_mesh()  # one device, or raises
+    if cfg.build_mesh(device=args.device) is not None:
+        raise ValueError("view renders on one device; run it without a mesh (--mesh none)")
     if args.width is None:
         cfg = cfg.replace(width=256, height=192, depth=min(cfg.depth, 3))
     return run_viewer(cfg, max_cols=args.max_cols, max_frames=args.frames,

@@ -13,6 +13,7 @@ import dataclasses
 from typing import Any
 
 import torch
+import torch.distributed as dist
 
 from raytracer_tpu_torch.core.types import Camera, Scene
 from raytracer_tpu_torch.models import scenes
@@ -37,23 +38,45 @@ class RenderConfig:
     fit: bool = False
     fit_steps: int = 200
     fit_lr: float = 2e-2
-    # device mesh: (px, prim), "auto" (every local device on the pixel
-    # axis when more than one is present), or None (one device)
+    # rank mesh: (px, prim), "auto" (every rank on the pixel axis when
+    # more than one takes part), or None (one device)
     mesh: tuple[int, int] | str | None = None
 
-    def build_mesh(self):
-        """The mesh of ``mesh``: ``None`` on one device. ``None`` gives
-        ``None``, and so does ``"auto"`` with at most one CUDA device;
-        anything else needs the pixel-sharded path, which is not ported yet
-        and raises."""
+    def build_mesh(self, device=None):
+        """The ``parallel.mesh.Mesh`` of ``mesh``, or ``None`` for one device.
+
+        Starts the process group from torchrun's environment first, if there
+        is one (``initialize_distributed``). ``None`` gives ``None``.
+        ``"auto"`` gives ``slice_mesh()`` over every rank when more than one
+        takes part and ``None`` on one rank; a single process on a host of
+        several CUDA devices raises (launch it under torchrun, one rank a
+        device). ``(px, prim)`` gives ``slice_mesh(prim)`` and raises unless
+        ``px * prim`` is the number of ranks. ``device`` (``None``: CUDA) is
+        where this rank renders."""
+        from raytracer_tpu_torch.parallel.hosts import initialize_distributed, slice_mesh
+
         if self.mesh is None:
             return None
-        if self.mesh == "auto" and torch.cuda.device_count() <= 1:
+        initialize_distributed(device=device)
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        if self.mesh == "auto":
+            if world > 1:
+                return slice_mesh(device=device)
+            cuda = torch.device("cuda" if device is None else device).type == "cuda"
+            if cuda and not dist.is_initialized() and torch.cuda.device_count() > 1:
+                raise RuntimeError(
+                    f"mesh 'auto' on {torch.cuda.device_count()} CUDA devices in one "
+                    "process: launch under torchrun (--nproc-per-node "
+                    f"{torch.cuda.device_count()}), one rank a device"
+                )
             return None
-        raise NotImplementedError(
-            f"mesh {self.mesh!r} ({torch.cuda.device_count()} CUDA devices): the "
-            "pixel-sharded path is not ported yet (ROADMAP queue 1, item 9)"
-        )
+        px, prim = self.mesh
+        if px * prim != world:
+            raise ValueError(
+                f"mesh {px}x{prim} needs {px * prim} ranks, and {world} take part: "
+                f"launch {px * prim} ranks under torchrun"
+            )
+        return slice_mesh(prim, device=device)
 
     def build_scene(self, device=None) -> Scene:
         factory = {
@@ -107,8 +130,8 @@ BASELINE_CONFIGS: dict[str, RenderConfig] = {
             width=640, height=640, depth=10,
         ),
         RenderConfig(
-            # Pixel-tile sharding over every local device when more than one
-            # is present, one device otherwise.
+            # Pixel-row sharding over every rank when more than one takes
+            # part (torchrun), one device otherwise.
             name="c5-4k-1024sphere",
             scene="grid", scene_args={"n": 1024},
             width=3840, height=2160, depth=4, mesh="auto",

@@ -6,11 +6,14 @@ soft renderer (the hard one has no gradient at silhouettes): a cosine
 learning-rate decay, and a soft temperature annealed from 4x down to the
 target by 60% of the run. Writes ``target.png``, ``initial.png``,
 ``final.png`` and ``final_hard.png``, ``metrics.jsonl`` and a resumable
-``checkpoint.npz``, and scores the result by the hard render's PSNR.
+``checkpoint.npz``, and scores the result by the hard render's PSNR. With a
+mesh (``cfg.mesh``, ``--mesh``) every rank runs the loop on its rows and
+only rank 0 writes files and prints.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import time
@@ -23,6 +26,7 @@ from raytracer_tpu_torch.app.config import RenderConfig
 from raytracer_tpu_torch.core.types import resolve_device
 from raytracer_tpu_torch.diff.soft import render_soft
 from raytracer_tpu_torch.io import save_png
+from raytracer_tpu_torch.parallel.hosts import is_lead
 from raytracer_tpu_torch.parallel.train import make_fit_step, merge_params
 from raytracer_tpu_torch.render.integrator import render
 from raytracer_tpu_torch.utils.checkpoint import load_fit_state, save_fit_state
@@ -87,11 +91,24 @@ def run_fit(
     update's loss, the mean centre error after it, seconds) at the first
     update and every ``log_every``, checkpoints every ``checkpoint_every``
     and at the end, and ends with a line of the final centre error, loss
-    and hard-render PSNR."""
+    and hard-render PSNR. With a mesh (``cfg.build_mesh``) every rank of it
+    calls this and steps on its rows of the frame (on ``mesh.device``);
+    rank 0 alone writes and prints."""
+    mesh = cfg.build_mesh(device=device)
     dev = resolve_device(device)
+    lead = is_lead()
     out_dir = Path(out_dir)
-    out_dir.mkdir(parents=True, exist_ok=True)
+    if lead:
+        out_dir.mkdir(parents=True, exist_ok=True)
     w, h, depth = cfg.width, cfg.height, cfg.depth
+
+    def write_png(name: str, img: torch.Tensor) -> None:
+        if lead:
+            save_png(out_dir / name, img)
+
+    def checkpoint() -> None:
+        if lead:
+            save_fit_state(out_dir / "checkpoint.npz", state, scheduler)
 
     truth = cfg.build_scene(device=dev)
     camera = cfg.build_camera(device=dev)
@@ -99,10 +116,10 @@ def run_fit(
     # did not make it (the soft render converges to the hard one as tau -> 0).
     with torch.no_grad():
         target = render(truth, camera, w, h, depth=depth, tonemap=cfg.tonemap, device=dev)
-    save_png(out_dir / "target.png", target)
+    write_png("target.png", target)
 
     init_fn, step_fn = make_fit_step(
-        w, h, mesh=cfg.build_mesh(), depth=depth, learning_rate=lr, tonemap=cfg.tonemap,
+        w, h, mesh=mesh, depth=depth, learning_rate=lr, tonemap=cfg.tonemap,
         device=dev, soft=True, soft_tau=soft_tau,
     )
     state = init_fn(merge_params(truth, perturbed_params(truth, perturb)))
@@ -120,39 +137,41 @@ def run_fit(
     def center_err() -> float:
         return float((state.params["center"].detach() - truth.spheres.center).abs().mean())
 
-    save_png(out_dir / "initial.png", soft_frame())
+    write_png("initial.png", soft_frame())
     loss = torch.tensor(float("nan"))
-    with open(out_dir / "metrics.jsonl", "a") as metrics:
+    with open(out_dir / "metrics.jsonl", "a") if lead else contextlib.nullcontext() as metrics:
+
+        def log(line: str) -> None:
+            if lead:
+                print(line, flush=True)
+                metrics.write(line + "\n")
+                metrics.flush()
+
         t0 = time.perf_counter()
         for i in range(steps):
             tau_k = anneal_tau(state.step, steps, soft_tau)
             state, loss = step_fn(state, truth, camera, target, tau=tau_k)
             scheduler.step()  # optax reads its schedule at the count before the update
             if (i + 1) % log_every == 0 or i == 0:
-                line = json.dumps({
+                log(json.dumps({
                     "step": state.step,
                     "loss": float(loss),
                     "center_err": center_err(),
                     "elapsed_s": round(time.perf_counter() - t0, 2),
-                })
-                print(line, flush=True)
-                metrics.write(line + "\n")
-                metrics.flush()
+                }))
             if (i + 1) % checkpoint_every == 0:
-                save_fit_state(out_dir / "checkpoint.npz", state, scheduler)
+                checkpoint()
 
-        save_fit_state(out_dir / "checkpoint.npz", state, scheduler)
-        save_png(out_dir / "final.png", soft_frame())
+        checkpoint()
+        write_png("final.png", soft_frame())
         # The recovered scene on the hard renderer: did the geometry
         # reproduce the target, not just the soft surrogate.
         with torch.no_grad():
             hard_final = render(merge_params(truth, state.params), camera, w, h, depth=depth,
                                 tonemap=cfg.tonemap, device=dev)
-        save_png(out_dir / "final_hard.png", hard_final)
+        write_png("final_hard.png", hard_final)
         mse_hard = float(torch.mean((hard_final - target) ** 2))
         psnr = 10.0 * math.log10(1.0 / max(mse_hard, 1e-12))
-        line = json.dumps({"final_center_err": center_err(), "final_loss": float(loss),
-                           "psnr_hard_db": round(psnr, 2)})
-        print(line)
-        metrics.write(line + "\n")
+        log(json.dumps({"final_center_err": center_err(), "final_loss": float(loss),
+                        "psnr_hard_db": round(psnr, 2)}))
     return 0

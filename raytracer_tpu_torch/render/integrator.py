@@ -29,6 +29,21 @@ def _row_chunks(width: int, height: int, row_chunk: int) -> int:
     return max(1, _CHUNK_PIXELS // width)
 
 
+def _trace_rows(scene: Scene, camera: Camera, width: int, height: int, row0: int, rows: int,
+                chunk: int, *, depth: int, fold: str, closest_hit_fn=None) -> torch.Tensor:
+    """Radiance of rows ``[row0, row0 + rows)`` of the ``width`` x
+    ``height`` frame, ``[rows, W, 3]``: ``render_tile`` on chunks of
+    ``chunk`` rows, joined (``render``'s tiling, and a mesh rank's)."""
+    tiles = [
+        render_tile(
+            scene, camera, width, height, row_offset=row0 + r0, rows=min(chunk, rows - r0),
+            depth=depth, fold=fold, closest_hit_fn=closest_hit_fn,
+        ).stacked()
+        for r0 in range(0, rows, chunk)
+    ]
+    return tiles[0] if len(tiles) == 1 else torch.cat(tiles, dim=0)
+
+
 def trace_rays(
     scene: Scene,
     origins: torch.Tensor,  # f32[P, 3]
@@ -76,14 +91,7 @@ def render(
     rows = _row_chunks(rw, rh, row_chunk * ss if row_chunk else 0)
     rows -= rows % ss  # keep chunk boundaries on whole-pixel rows
     rows = max(rows, ss)
-    tiles = [
-        render_tile(
-            scene, camera, rw, rh, row_offset=r0, rows=min(rows, rh - r0),
-            depth=depth, fold=fold,
-        ).stacked()
-        for r0 in range(0, rh, rows)
-    ]
-    img = tiles[0] if len(tiles) == 1 else torch.cat(tiles, dim=0)
+    img = _trace_rows(scene, camera, rw, rh, 0, rh, rows, depth=depth, fold=fold)
     if ss > 1:
         img = img.reshape(height, ss, width, ss, 3).mean(dim=(1, 3))
     return reinhard_tonemap(img) if tonemap else img

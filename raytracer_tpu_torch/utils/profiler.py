@@ -1,7 +1,9 @@
 """Timing on the card with CUDA events: device time of a call, the frame
 time of a render, the forward and backward of the hard-path gradient, and
-the fit step; per-phase host timers (``PhaseTimer``) and a profiler trace
-of a block (``trace_capture``)."""
+the fit step, each on one device or sharded over a mesh
+(``parallel/mesh.py``), and the sharded frame over growing rank counts;
+per-phase host timers (``PhaseTimer``) and a profiler trace of a block
+(``trace_capture``)."""
 
 from __future__ import annotations
 
@@ -23,6 +25,8 @@ __all__ = [
     "benchmark_render",
     "benchmark_forward_backward",
     "benchmark_fit_step",
+    "benchmark_scaling",
+    "scaling_rows",
 ]
 
 # Device cycles of the spin queued before each timed call (~0.5 ms at the
@@ -132,25 +136,29 @@ def benchmark_render(
     iters: int = 10,
     fold: str = "auto",
     tonemap: bool = True,
+    mesh=None,
 ) -> dict:
     """Forward-render throughput on the card: the median over ``iters``
     frames of the CUDA-event time from just before the ``render`` call (with
     the closest-hit ``fold``, as ``render`` takes it) to the end of its last
     device op, and primary rays/s at that frame time. Nothing is queued
     ahead of a frame, so host work that holds the device back counts in the
-    frame."""
-    from raytracer_tpu_torch.render.integrator import render
-
-    need_cuda()
-    scene, camera = scene.to("cuda"), camera.to("cuda")
-    render(scene, camera, width, height, depth=depth, tonemap=tonemap, fold=fold)
+    frame. With a ``mesh`` the frame is ``render_sharded`` over it (every
+    rank of the mesh calls this; each times its own call, which ends with
+    the gather of every rank's tile)."""
+    dev = _card(mesh)
+    scene, camera = scene.to(dev), camera.to(dev)
+    image = _image_fn(mesh, camera, width, height, depth=depth, tonemap=tonemap, fold=fold)
+    with torch.no_grad():
+        image(scene)
     times = []
     for _ in range(iters):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
         start.record()
-        render(scene, camera, width, height, depth=depth, tonemap=tonemap, fold=fold)
+        with torch.no_grad():
+            image(scene)
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
@@ -163,7 +171,30 @@ def benchmark_render(
         "depth": depth,
         "fold": fold,
         "device": torch.cuda.get_device_name(0),
+        **({} if mesh is None else {"mesh": _mesh_name(mesh)}),
     }
+
+
+def _mesh_name(mesh) -> str:
+    return "x".join(str(v) for v in mesh.devices.shape)
+
+
+def _card(mesh) -> torch.device:
+    """The device the timers run on, ``mesh.device`` or CUDA; raises unless
+    it is a CUDA device that is present."""
+    dev = torch.device("cuda") if mesh is None else mesh.device
+    need_cuda(dev)
+    return dev
+
+
+def _image_fn(mesh, camera: Camera, width: int, height: int, **kw):
+    """A scene's image: ``render``, or with a ``mesh`` ``render_sharded``."""
+    from raytracer_tpu_torch.parallel.render import render_sharded
+    from raytracer_tpu_torch.render.integrator import render
+
+    if mesh is None:
+        return lambda s: render(s, camera, width, height, **kw)
+    return lambda s: render_sharded(s, camera, width, height, mesh=mesh, **kw)
 
 
 def _calls_ms(fn, iters: int) -> float:
@@ -191,6 +222,7 @@ def benchmark_forward_backward(
     iters: int = 5,
     rounds: int = 3,
     fold: str = "auto",
+    mesh=None,
 ) -> dict:
     """Three timings of the image-MSE loss with respect to the sphere
     centers and colours (the fit's parameters), on the card:
@@ -206,22 +238,23 @@ def benchmark_forward_backward(
     profiler defines them. The three are timed in turn within each of
     ``rounds`` rounds (``iters`` calls each, CUDA events), the difference
     and ratio are taken per round, and the medians over rounds reported.
-    ``fold`` is the closest-hit fold, as ``render`` takes it.
+    ``fold`` is the closest-hit fold, as ``render`` takes it. With a
+    ``mesh`` the render is ``render_sharded`` over it, and the backward
+    ends with the gradients summed over the mesh (every rank calls this).
     """
+    from raytracer_tpu_torch.parallel import comm
     from raytracer_tpu_torch.parallel.train import default_params, merge_params
-    from raytracer_tpu_torch.render.integrator import render
 
-    need_cuda()
-    scene, camera = scene.to("cuda"), camera.to("cuda")
+    dev = _card(mesh)
+    scene, camera = scene.to(dev), camera.to(dev)
+    image = _image_fn(mesh, camera, width, height, depth=depth, fold=fold)
     with torch.no_grad():
-        target = render(scene, camera, width, height, depth=depth, fold=fold)
+        target = image(scene)
     fixed = default_params(scene)
     leaves = {k: v.detach().clone().requires_grad_(True) for k, v in fixed.items()}
 
     def loss(params):
-        img = render(merge_params(scene, params), camera, width, height, depth=depth,
-                     fold=fold)
-        return torch.mean((img - target) ** 2)
+        return torch.mean((image(merge_params(scene, params)) - target) ** 2)
 
     def forward():
         with torch.no_grad():
@@ -231,7 +264,10 @@ def benchmark_forward_backward(
         loss(leaves)
 
     def forward_backward():
-        torch.autograd.grad(loss(leaves), list(leaves.values()))
+        grads = torch.autograd.grad(loss(leaves), list(leaves.values()))
+        if mesh is not None:
+            for g in grads:
+                comm.all_sum(g, mesh.group)
 
     for fn in (forward, forward_train, forward_backward):
         fn()
@@ -258,6 +294,7 @@ def benchmark_forward_backward(
         "pixels": width * height,
         "depth": depth,
         "device": torch.cuda.get_device_name(0),
+        **({} if mesh is None else {"mesh": _mesh_name(mesh)}),
     }
 
 
@@ -271,19 +308,21 @@ def benchmark_fit_step(
     soft: bool = False,
     iters: int = 10,
     optimizer=None,
+    mesh=None,
 ) -> dict:
     """Time of one ``make_fit_step`` step (render with gradients, the soft
     ``render_soft`` with ``soft``, backward, optimizer update; ``optimizer``
-    as ``make_fit_step`` takes it) on the
-    card: the median over ``iters`` steps of the CUDA event time from just
-    before the step, with nothing queued ahead, to the end of its last
-    device op, fitting ``scene`` to a black image."""
+    and ``mesh`` as ``make_fit_step`` takes them, every rank of the mesh
+    calling this) on the card: the median over ``iters`` steps of the CUDA
+    event time from just before the step, with nothing queued ahead, to the
+    end of its last device op, fitting ``scene`` to a black image."""
     from raytracer_tpu_torch.parallel.train import make_fit_step
 
-    need_cuda()
-    scene, camera = scene.to("cuda"), camera.to("cuda")
-    target = torch.zeros((height, width, 3), dtype=torch.float32, device="cuda")
-    init_fn, step_fn = make_fit_step(width, height, depth=depth, soft=soft, optimizer=optimizer)
+    dev = _card(mesh)
+    scene, camera = scene.to(dev), camera.to(dev)
+    target = torch.zeros((height, width, 3), dtype=torch.float32, device=dev)
+    init_fn, step_fn = make_fit_step(width, height, depth=depth, soft=soft, optimizer=optimizer,
+                                     mesh=mesh)
     state = init_fn(scene)
     state, _ = step_fn(state, scene, camera, target)
     times = []
@@ -295,4 +334,57 @@ def benchmark_fit_step(
         "soft": soft,
         "depth": depth,
         "device": torch.cuda.get_device_name(0),
+        **({} if mesh is None else {"mesh": _mesh_name(mesh)}),
     }
+
+
+def scaling_rows(counts, frame_ms) -> list[dict]:
+    """The scaling table of ``benchmark_scaling``: for each rank count and
+    its frame time, primary-ray throughput as a ratio to the first row's
+    (``frames_per_first``) and the efficiency against linear scaling from
+    the first count, ``(1 / ms) / ((1 / ms0) * n / n0)``: 1.0 where ``n``
+    ranks are ``n / n0`` times as fast as ``n0``, whatever ``n0`` is."""
+    n0, ms0 = counts[0], frame_ms[0]
+    return [{"devices": n, "frame_ms": ms, "frames_per_first": ms0 / ms,
+             "scaling_efficiency": (ms0 / ms) / (n / n0)}
+            for n, ms in zip(counts, frame_ms, strict=True)]
+
+
+def benchmark_scaling(
+    scene: Scene,
+    camera: Camera,
+    width: int,
+    height: int,
+    *,
+    depth: int = 3,
+    iters: int = 5,
+    device_counts=None,
+    device=None,
+) -> list[dict]:
+    """Rays/s of the sharded render on meshes of the first ``n`` ranks, for
+    each ``n`` of ``device_counts`` (default 1, 2, 4, ... up to the world
+    size), and the efficiency against linear scaling from the first count
+    (``scaling_rows``). Every rank of the process group calls this: the
+    meshes are made collectively; ranks outside a mesh wait. Rank 0, in
+    every mesh, gives the rows (with primary rays/s); the others give []."""
+    import torch.distributed as dist
+
+    from raytracer_tpu_torch.parallel.mesh import make_mesh
+
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if device_counts is None:
+        device_counts = [n for n in (1, 2, 4, 8, 16, 32, 64) if n <= world]
+    times = []
+    for n in device_counts:
+        mesh = make_mesh(px=n, prim=1, ranks=range(n), device=device)
+        if mesh.coords is not None:
+            times.append(benchmark_render(scene, camera, width, height, depth=depth,
+                                          iters=iters, mesh=mesh)["frame_ms"])
+        if dist.is_initialized():
+            dist.barrier()
+    if dist.is_initialized() and dist.get_rank() != 0:
+        return []
+    rows = scaling_rows(device_counts, times)
+    for row in rows:
+        row["primary_rays_per_s"] = width * height / (row["frame_ms"] * 1e-3)
+    return rows

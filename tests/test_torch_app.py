@@ -44,9 +44,11 @@ def test_configs_equal_jax_field_for_field():
     assert list(BASELINE_CONFIGS) == list(J_CONFIGS)
     for name, cfg in BASELINE_CONFIGS.items():
         assert dataclasses.asdict(cfg) == dataclasses.asdict(J_CONFIGS[name]), name
-    assert BASELINE_CONFIGS["c5-4k-1024sphere"].build_mesh() is None  # no CUDA here: one device
-    with pytest.raises(NotImplementedError, match="item 9"):
-        BASELINE_CONFIGS["c3-1080p-3bounce"].replace(mesh=(2, 1)).build_mesh()
+    # One process, no CUDA here: "auto" is one device; a (2, 1) mesh needs
+    # two ranks and says so.
+    assert BASELINE_CONFIGS["c5-4k-1024sphere"].build_mesh() is None
+    with pytest.raises(ValueError, match="mesh 2x1 needs 2 ranks.*torchrun"):
+        BASELINE_CONFIGS["c3-1080p-3bounce"].replace(mesh=(2, 1)).build_mesh(device="cpu")
 
 
 @pytest.mark.parametrize("name", ["random", "logo"])
@@ -180,11 +182,12 @@ def test_cli_render_and_depth_pass_on_cpu(tmp_path):
     assert np.array_equal(load_image(out), to_u8(viz))
 
 
-def test_cli_configs_bench_and_mesh(capsys, monkeypatch):
+def test_cli_configs_bench_and_mesh(capsys, monkeypatch, tmp_path):
     """``configs`` prints the JAX CLI's text; ``bench`` times only on the
     card and raises on ``--device cpu`` even where a card is present, and
-    on the default device where none is; a mesh of two devices is not
-    ported yet."""
+    on the default device where none is; ``--mesh 2,1`` in one process
+    raises (it needs two ranks under torchrun), and ``--mesh 1,1`` renders
+    through ``render_sharded`` the PNG of ``render``."""
     assert main(["configs"]) == 0
     ours = capsys.readouterr().out
     assert j_main(["configs"]) == 0
@@ -195,8 +198,16 @@ def test_cli_configs_bench_and_mesh(capsys, monkeypatch):
         m.setattr(torch.cuda, "is_available", lambda: True)
         with pytest.raises(RuntimeError, match="needs a CUDA device, not 'cpu'"):
             main(["bench", "--scene", "demo", *SMALL, "--iters", "2"])
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(ValueError, match="mesh 2x1 needs 2 ranks.*torchrun"):
         main(["render", "--scene", "demo", *SMALL, "--mesh", "2,1", "-o", "unused.png"])
+    out = tmp_path / "mesh.png"
+    assert main(["render", "--scene", "demo", "--depth", "2", *SMALL, "--mesh", "1,1", "-o",
+                 str(out)]) == 0
+    assert "mesh=1x1" in capsys.readouterr().out
+    with torch.no_grad():
+        want = render(tscenes.reference_demo_scene(device="cpu"),
+                      tscenes.reference_demo_camera(device="cpu"), 48, 36, depth=2, device="cpu")
+    assert np.array_equal(load_image(out), to_u8(want))
 
 
 def test_cli_view_and_phase_timer(tmp_path, capsys):

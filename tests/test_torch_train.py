@@ -141,20 +141,32 @@ def test_fit_lowers_the_loss():
 
 
 def test_fit_rejects_soft_and_mesh():
-    """The pixel-sharded mesh is not ported and raises, with or without
-    ``soft``; the soft fit is ported (tests/test_torch_soft_grad.py holds
-    it against the JAX package) and takes a step."""
-    with pytest.raises(NotImplementedError, match="mesh"):
+    """``mesh=`` takes a ``parallel.mesh.Mesh`` and nothing else
+    (``TypeError``, with or without ``soft``); a (2, 1) mesh in a single
+    process raises (it needs two ranks); the 1x1 mesh of one process takes
+    the single-rank step bit for bit, hard and soft (the four-rank meshes
+    are tests/test_torch_sharded.py's)."""
+    from raytracer_tpu_torch.parallel import make_mesh
+
+    with pytest.raises(TypeError, match="Mesh"):
         make_fit_step(8, 8, mesh=object())
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="Mesh"):
         make_fit_step(8, 8, mesh=object(), soft=True)
+    with pytest.raises(ValueError, match="mesh 2x1 needs a process group of 2 ranks"):
+        make_mesh(2, 1, device="cpu")
     scene = tscenes.grid_sphere_scene(4, distance=4.0, device="cpu")
     cam = tscenes.reference_demo_camera(device="cpu")
-    init_fn, step_fn = make_fit_step(8, 6, depth=1, soft=True, device="cpu")
-    state, loss = step_fn(init_fn(scene), scene, cam, torch.zeros((6, 8, 3)))
-    assert state.step == 1 and np.isfinite(float(loss)) and float(loss) > 0.0
-    assert all(bool(torch.isfinite(v.grad).all()) and float(v.grad.abs().max()) > 0.0
-               for v in state.params.values())
+    mesh = make_mesh(device="cpu")
+    for soft in (False, True):
+        steps = [make_fit_step(8, 6, depth=1, soft=soft, device="cpu", mesh=m)
+                 for m in (None, mesh)]
+        (s1, l1), (s2, l2) = (step_fn(init_fn(scene), scene, cam, torch.zeros((6, 8, 3)))
+                              for init_fn, step_fn in steps)
+        assert s1.step == s2.step == 1 and np.isfinite(float(l1)) and float(l1) > 0.0
+        assert torch.equal(l2, l1)
+        for k, v in s1.params.items():
+            assert bool(torch.isfinite(v.grad).all()) and float(v.grad.abs().max()) > 0.0
+            assert torch.equal(s2.params[k], v)
 
 
 def _wall_colour(scene):
