@@ -1,0 +1,15 @@
+"""Milliseconds a frame in ``rt.render`` outside its child spans: the row
+chunk loop, the joins and the tone map (``render/integrator.py``), from the
+program's span registry."""
+
+import importlib.util
+from pathlib import Path
+
+_spec = importlib.util.spec_from_file_location("benchmark_metric_spans",
+                                               Path(__file__).with_name("_spans.py"))
+_spans = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(_spans)
+
+
+def read(ctx):
+    return _spans.self_ms(ctx, "render")

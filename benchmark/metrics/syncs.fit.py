@@ -1,0 +1,14 @@
+"""Host syncs a fit step, as torch's sync debug mode reports them (the
+program's ``syncs`` counter)."""
+
+import importlib.util
+from pathlib import Path
+
+_spec = importlib.util.spec_from_file_location("benchmark_metric_spans",
+                                               Path(__file__).with_name("_spans.py"))
+_spans = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(_spans)
+
+
+def read(ctx):
+    return _spans.counter(ctx, "fit", "syncs")

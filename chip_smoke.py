@@ -66,8 +66,9 @@ only on lanes where the ungated and gated folds differ), and
 the per-level loop around ``closest_hit_soa`` on grid-1024 1920x1080 d3 with
 its gradient; each path with the kernel launch counts set to 0 just before
 it and read just after; the frame, fit step (soft: c4, grid-1024,
-grid-2048, grid-4096) and forward/backward times and breakdowns; a profile
-of one frame; the guards; a ``kernels`` JSON line. The last line is
+grid-2048, grid-4096) and forward/backward times; the span registry's
+per-request medians of 20 c5 frames and 20 c4 soft fit steps recorded after
+the timed calls (``span_medians``); the guards; a ``kernels`` JSON line. The last line is
 ``{"ok": true, "device": {...}}``. Any failed check ends the run with a
 non-zero exit code and no result line, and names the failed checks on
 standard error. Without CUDA, or without the package
@@ -943,23 +944,6 @@ def event_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(cuda_time_ms(fn, iters=iters, warmup=warmup))
 
 
-def host_ms(steps: dict, iters: int) -> dict:
-    """Median host milliseconds of each step of ``steps`` (name -> call),
-    each call ended by a synchronize, after one warm-up call."""
-    out = {}
-    for name, fn in steps.items():
-        fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(iters):
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        out[name] = statistics.median(times)
-    return out
-
-
 def level_kernels_ms(tables, o, d, w, depth: int, tile=None, plain: bool = False) -> dict:
     """The per-level kernels of one frame, each timed alone on the chain's
     own inputs (``event_ms``): ``ray_stats`` and each ``trace_level``
@@ -1146,31 +1130,27 @@ def drive_main_path(device, width: int = 1920, height: int = 1080, depth: int = 
     return img, read_launches()
 
 
-def _counted():
-    from raytracer_tpu_torch.ops import cuda_fold, cuda_level
-
-    from raytracer_tpu_torch.ops import cuda_hit, cuda_soft
-
-    return {"trace_whole": cuda_fold.trace_whole, "trace_whole_bwd": cuda_fold.trace_whole_bwd,
-            "ray_stats": cuda_level.ray_stats, "trace_level": cuda_level.trace_level,
-            "trace_level_bwd": cuda_level.trace_level_bwd,
-            "soft_level": cuda_soft.soft_level, "soft_level_bwd": cuda_soft.soft_level_bwd,
-            "fold_flat": cuda_hit.fold_flat, "fold_shortlist": cuda_hit.fold_shortlist,
-            "fold_shortlist_hit": cuda_hit.fold_shortlist_hit}
-
-
 def reset_launches():
-    for fn in _counted().values():
-        fn.launches = 0
+    from raytracer_tpu_torch.utils import profiler
+
+    if hasattr(profiler, "reset_launches"):  # else a package from before the span registry
+        profiler.reset_launches()
 
 
-def read_launches() -> dict:
-    return {name: fn.launches for name, fn in _counted().items()}
+def read_launches() -> dict | None:
+    """Each kernel's launches since ``reset_launches`` (the span registry's
+    counts); None for a package from before the registry (``--MODE-compare``'s
+    parent)."""
+    from raytracer_tpu_torch.utils import profiler
+
+    return profiler.launches() if hasattr(profiler, "launches") else None
 
 
 def launches_of(**counts) -> dict:
     """Every kernel's count: the given ones, 0 for the others."""
-    return {name: counts.get(name, 0) for name in _counted()}
+    from raytracer_tpu_torch.utils.profiler import KERNELS
+
+    return {name: counts.get(name, 0) for name in KERNELS}
 
 
 def fit_start(device, width: int = 1920, height: int = 1080):
@@ -1231,63 +1211,6 @@ def count_launches_demo(device) -> dict:
     reset_launches()
     render(scene, camera, 640, 640, depth=10, device=device)
     return read_launches()
-
-
-def frame_breakdown(device, width: int = 1920, height: int = 1080, depth: int = 3,
-                    iters: int = 20) -> dict:
-    """Median host milliseconds (each ended by a synchronize) of the steps of
-    one ``render`` call: packing the scene tables, ray generation, the
-    kernel launch, and the tone map with the ``[H, W, 3]`` stack."""
-    from raytracer_tpu_torch.models import scenes
-    from raytracer_tpu_torch.ops import cuda_fold
-    from raytracer_tpu_torch.ops.tonemap import reinhard_tonemap
-    from raytracer_tpu_torch.ops.trace import raygen_tile
-
-    scene = scenes.sprint3_scene(device=device)
-    camera = scenes.reference_demo_camera(device=device)
-    tables = cuda_fold.fused_tables(scene)
-    o, d = raygen_tile(camera, width, height)
-    o, d = o.broadcast_to(d.x.shape), d.broadcast_to(d.x.shape)
-    w = torch.ones(d.x.shape, dtype=torch.float32, device=device)
-    rgb, _, _ = cuda_fold.trace_whole(tables, o, d, w, depth)
-    steps = {
-        "fused_tables": lambda: cuda_fold.fused_tables(scene),
-        "raygen": lambda: [c.broadcast_to(d.x.shape) for c in raygen_tile(camera, width, height)],
-        "trace_whole": lambda: cuda_fold.trace_whole(tables, o, d, w, depth),
-        "tonemap": lambda: reinhard_tonemap(rgb.stacked()),
-    }
-    return host_ms(steps, iters)
-
-
-def fit_breakdown(device, iters: int = 10) -> dict:
-    """Median host milliseconds (each ended by a synchronize) of the parts
-    of one fit step at sprint3 1920x1080 d3: ``render`` with gradients
-    (attribute tables, the forward kernel with residuals, the tone map),
-    the loss and its backward (the backward kernel, the tables' and tone
-    map's backward), and the Adam update."""
-    from raytracer_tpu_torch import make_fit_step, merge_params, render
-
-    start, camera, target = fit_start(device)
-    init_fn, _ = make_fit_step(1920, 1080, depth=3, device=device)
-    state = init_fn(start)
-    parts = {"render": [], "loss_backward": [], "adam": []}
-    for _ in range(iters + 1):
-        state.optimizer.zero_grad(set_to_none=True)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        img = render(merge_params(start, state.params), camera, 1920, 1080, depth=3,
-                     device=device)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        torch.mean((img - target) ** 2).backward()
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        state.optimizer.step()
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        for k, v in zip(parts, (t1 - t0, t2 - t1, t3 - t2)):
-            parts[k].append(v * 1e3)
-    return {k: statistics.median(v[1:]) for k, v in parts.items()}
 
 
 def check_image(img, width, height, device) -> dict:
@@ -1503,97 +1426,6 @@ def drive_level_training(device, steps: int = 5, width: int = 1920,
         and all(np.isfinite(losses)) and losses[-1] < losses[0]
         and all(bool(torch.isfinite(v).all()) for v in state.params.values())
     )
-    return out
-
-
-def level_frame_breakdown(device, width: int = 1920, height: int = 1080, depth: int = 3,
-                          iters: int = 20) -> dict:
-    """Median host milliseconds (each ended by a synchronize) of the steps
-    of one grid-1024 ``render`` call on the per-level route: packing the
-    tables, ray generation, the stats kernel, phase A of one level (~20
-    small PyTorch ops on the device), one level's kernel (level 0), the
-    whole chain, and the tone map."""
-    from raytracer_tpu_torch.core.v3 import V3
-    from raytracer_tpu_torch.ops import cuda_fold, cuda_level
-    from raytracer_tpu_torch.ops.tonemap import reinhard_tonemap
-    from raytracer_tpu_torch.ops.trace import raygen_tile
-    from raytracer_tpu_torch.models import scenes
-
-    scene = scenes.grid_sphere_scene(1024, device=device)
-    camera = scenes.reference_demo_camera(device=device)
-    tables = cuda_fold.fused_tables(scene)
-    o, d, w = frame_rays(width, height, device)
-    stats = cuda_level.ray_stats(tables, o, d, w)
-    sl = cuda_level.phase_a(stats, tables)
-    rgb, _, _ = cuda_level.trace_levels(tables, o, d, w, depth)
-    tt, ii = torch.empty_like(w), torch.empty(w.shape, dtype=torch.int32, device=device)
-    nxt = [torch.empty_like(w) for _ in range(7)]
-    acc = V3(*(torch.zeros_like(w) for _ in range(3)))
-    steps = {
-        "fused_tables": lambda: cuda_fold.fused_tables(scene),
-        "raygen": lambda: [c.broadcast_to(d.x.shape) for c in raygen_tile(camera, width, height)],
-        "ray_stats": lambda: cuda_level.ray_stats(tables, o, d, w),
-        "phase_a": lambda: cuda_level.phase_a(stats, tables),
-        "trace_level_0": lambda: cuda_level.trace_level(tables, sl, o, d, w, acc, tt, ii, nxt,
-                                                        False, None, True),
-        "trace_levels": lambda: cuda_level.trace_levels(tables, o, d, w, depth),
-        "tonemap": lambda: reinhard_tonemap(rgb.stacked()),
-    }
-    return host_ms(steps, iters)
-
-
-def profile_frame(device) -> dict:
-    """``torch.profiler`` over one grid-1024 ``render`` at 1920x1080 d3 and
-    one fit step (``level_fit_optimizer``, as ``drive_level_training``
-    checks it): each kernel's summed device time (the profiler's
-    device-side events only), and the share of the window's wall time (CUDA
-    events, the profiler's own overhead included) that the device spent in
-    none of them."""
-    from raytracer_tpu_torch import make_fit_step, render
-    from raytracer_tpu_torch.models import scenes
-
-    scene = scenes.grid_sphere_scene(1024, device=device)
-    camera = scenes.reference_demo_camera(device=device)
-    start, _, target = level_fit_start(device)
-    init_fn, step_fn = make_fit_step(1920, 1080, depth=3, device=device,
-                                     optimizer=level_fit_optimizer)
-    state = init_fn(start)
-    return profile_work({
-        "render": lambda: render(scene, camera, 1920, 1080, depth=3, device=device),
-        "fit_step": lambda: step_fn(state, start, camera, target),
-    })
-
-
-def profile_work(work: dict) -> dict:
-    """``torch.profiler`` over one call of each of ``work``'s functions (after
-    one untimed call): each kernel's summed device time and the idle share,
-    as ``profile_frame`` reports them."""
-    out = {}
-    for name, fn in work.items():
-        fn()
-        torch.cuda.synchronize()
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            e0.record()
-            fn()
-            e1.record()
-            torch.cuda.synchronize()
-        wall = e0.elapsed_time(e1)
-        rows = []
-        for ev in prof.key_averages():
-            if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
-                continue  # a host op: its kernels are counted as their own events
-            dev_us = getattr(ev, "self_device_time_total", None)
-            if dev_us is None:
-                dev_us = getattr(ev, "self_cuda_time_total", 0.0)
-            if dev_us > 0:
-                rows.append((ev.key, dev_us / 1e3, ev.count))
-        rows.sort(key=lambda r: -r[1])
-        busy = sum(r[1] for r in rows)
-        out[name] = dict(wall_ms=wall, device_busy_ms=busy,
-                         idle_share=max(0.0, 1.0 - busy / wall) if wall else None,
-                         top=[(k[:60], round(ms, 4), c) for k, ms, c in rows[:8]])
     return out
 
 
@@ -1927,22 +1759,42 @@ def drive_soft_render(device, width: int = 1920, height: int = 1080) -> dict:
                 ok=ok, frame_ms=statistics.median(times), frame_ms_all=times)
 
 
-def profile_soft(device) -> dict:
-    """``profile_work`` over one c4 ``render_soft`` (grid-64, 1920x1080,
-    depth 1) and one c4 soft fit step from the moved centres."""
-    from raytracer_tpu_torch import make_fit_step, render_soft
+def span_medians(device, frames: int = 20, steps: int = 20) -> dict:
+    """The span registry's medians a request (``utils/profiler.py``) over
+    ``frames`` c5 frames (grid-1024 3840x2160 d4, each waited for, as the
+    render cell runs them) and ``steps`` c4 soft fit steps (grid-64
+    1920x1080 d1, back to back), recorded with ``profiler.recording()``
+    after a warm-up of each: the milliseconds of each span name summed over
+    a request, ``self``: the request's self time, and each counter."""
+    from raytracer_tpu_torch import make_fit_step, render
+    from raytracer_tpu_torch.models import scenes
+    from raytracer_tpu_torch.utils import profiler
 
-    truth, start, camera, target = soft_fit_start(device)
+    grid = scenes.grid_sphere_scene(1024, device=device)
+    camera = scenes.reference_demo_camera(device=device)
+    _, start, soft_camera, target = soft_fit_start(device)
     init_fn, step_fn = make_fit_step(1920, 1080, depth=1, soft=True, device=device)
     state = init_fn(start)
-
-    def frame():
-        with torch.no_grad():
-            render_soft(truth, camera, 1920, 1080, tau=SOFT_TAU, tau_z=SOFT_TAU_Z, depth=1,
-                        device=device)
-
-    return profile_work({"render_soft": frame,
-                         "soft_fit_step": lambda: step_fn(state, start, camera, target)})
+    work = {"c5 frame": lambda: render(grid, camera, 3840, 2160, depth=4, device=device),
+            "c4 soft fit step": lambda: step_fn(state, start, soft_camera, target)}
+    out = {}
+    for kind, fn in work.items():
+        fn()
+        torch.cuda.synchronize()
+        profiler.reset()
+        with profiler.recording():
+            for _ in range(frames if kind == "c5 frame" else steps):
+                fn()
+                if kind == "c5 frame":
+                    torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        reqs = profiler.snapshot()["requests"]
+        rows = [{**{k: v / 1e6 for k, v in profiler.span_totals_ns(r).items()},
+                 "self": profiler.self_ns(r, r["name"]) / 1e6, **r["counters"]} for r in reqs]
+        names = sorted({k for row in rows for k in row})
+        out[kind] = {"requests": len(rows),
+                     **{k: statistics.median(row.get(k, 0) for row in rows) for k in names}}
+    return out
 
 
 def drive_soft_fit(device, steps: int = 20, width: int = 1920, height: int = 1080) -> dict:
@@ -2783,7 +2635,10 @@ def reach_stats(tables, gates, o, d, order=None) -> dict:
     lane indices, natural order if None): per lane (the exact gate,
     ``chunk_reachable``), the union over each warp (32 consecutive lanes)
     and each block (256), their ratios to the lane reach, and with the box
-    gate the chunks a warp's conservative cull passes (``group_cull``)."""
+    gate the chunks a warp's conservative cull passes (``group_cull``).
+    ``lane_pairs`` and ``warp_pairs``: the (lane, chunk) and (warp, chunk)
+    pairs, which ``soft_level_bwd`` counts as ``soft_bwd.lane_chunks`` and
+    ``soft_bwd.warp_chunks`` while a request is recorded."""
     from raytracer_tpu_torch.core.v3 import V3
     from raytracer_tpu_torch.ops import cuda_soft
 
@@ -2802,7 +2657,7 @@ def reach_stats(tables, gates, o, d, order=None) -> dict:
         warp += int(m.view(-1, 32).any(1).sum())
         block += int(m.view(-1, 256).any(1).sum())
     n_w, n_b = (n + pad) // 32, (n + pad) // 256
-    r = dict(lane=lane / n, warp=warp / n_w, block=block / n_b)
+    r = dict(lane=lane / n, warp=warp / n_w, block=block / n_b, lane_pairs=lane, warp_pairs=warp)
     r["warp_ratio"] = r["warp"] / max(r["lane"], 1e-30)
     r["block_ratio"] = r["block"] / max(r["lane"], 1e-30)
     if c["gate"] == 0:
@@ -4796,13 +4651,7 @@ def main() -> int:
             f"ratio_rounds={[round(v, 4) for v in fb['bwd_fwd_ratio_rounds']]}", flush=True,
         )
 
-    fbd = fit_breakdown("cuda")
-    print("fit step breakdown sprint3 1920x1080 d3 (host ms, synchronized): "
-          + " ".join(f"{k}={v:.4f}" for k, v in fbd.items()), flush=True)
     print(f"demo render 640x640 d10 launches per frame: {demo_launches}", flush=True)
-    breakdown = frame_breakdown("cuda")
-    print("frame breakdown sprint3 1920x1080 d3 (host ms, synchronized): "
-          + " ".join(f"{k}={v:.4f}" for k, v in breakdown.items()), flush=True)
 
     # ---- large scenes: grid-1024 render (1080p d3, c5 4K d4) and fit (per-level) ----
     grid = scenes.grid_sphere_scene(1024, device="cuda")
@@ -4852,17 +4701,6 @@ def main() -> int:
         f"backward_ms={fb['backward_ms']:.4f} bwd_fwd_ratio={fb['bwd_fwd_ratio']:.4f} "
         f"ratio_rounds={[round(v, 4) for v in fb['bwd_fwd_ratio_rounds']]}", flush=True,
     )
-    lbd = level_frame_breakdown("cuda")
-    print("frame breakdown grid1024 1920x1080 d3 (host ms, synchronized): "
-          + " ".join(f"{k}={v:.4f}" for k, v in lbd.items()), flush=True)
-    try:
-        prof = profile_frame("cuda")
-        for name, p in prof.items():
-            print(f"profile grid1024 1920x1080 d3 {name}: wall_ms={p['wall_ms']:.4f} "
-                  f"device_busy_ms={p['device_busy_ms']:.4f} idle_share={p['idle_share']} "
-                  f"top={p['top']}", flush=True)
-    except Exception as exc:  # the profiler's CUDA trace is untried on this machine
-        print(f"profile: not available ({type(exc).__name__}: {exc})", flush=True)
 
     # ---- the soft renderer: c4 render and fit, the large soft fits (kernels 6-7) ----
     soft_results = []
@@ -4900,13 +4738,10 @@ def main() -> int:
         f"step_ms={c4['step_ms']:.4f} (all {[round(v, 4) for v in c4['step_ms_all']]})",
         flush=True,
     )
-    try:
-        for name, p in profile_soft("cuda").items():
-            print(f"profile c4 grid64 1920x1080 d1 {name}: wall_ms={p['wall_ms']:.4f} "
-                  f"device_busy_ms={p['device_busy_ms']:.4f} idle_share={p['idle_share']} "
-                  f"top={p['top']}", flush=True)
-    except Exception as exc:  # the profiler's CUDA trace is untried on this machine
-        print(f"profile soft: not available ({type(exc).__name__}: {exc})", flush=True)
+    spans = span_medians("cuda")
+    for kind, med in spans.items():
+        print(f"span registry {kind} (medians a request over {med.pop('requests')}, ms; "
+              f"counters): {json.dumps(med)}", flush=True)
     fits_n = {}
     for n in (1024, 2048, 4096):  # bench.py's two large soft fits, and 4096 spheres
         reset_launches()
@@ -5223,7 +5058,7 @@ def main() -> int:
         "cli_render_c5_mesh_1x1": one["cli_c5"]["launches"],
         "sharded_sprint3_1x1": one["sprint3"]["launches"],
         "sharded_soft_fit_c4_1x1_3_steps": {
-            k: sum(p[k] for p in one["c4_fit"]["launches_per_step"]) for k in _counted()},
+            k: sum(p[k] for p in one["c4_fit"]["launches_per_step"]) for k in launches_of()},
         "sharded_grid1024_2x1_a_rank": two["px_2x1"]["launches"],
         "sharded_grid1024_1x2_a_rank": two["prim_1x2"]["launches"],
         **{f"fit_step_2x1_{k}_a_rank": v["launches_per_step"]

@@ -62,6 +62,14 @@
 //   2^41 a sum), which the launch checks.
 // The plain version sums in float64.
 //
+// Reach counts (the COUNT instantiation, with a `reach` pointer; without
+// one the kernel is the same as before they existed): each lane counts the
+// chunks whose exact gate its ray passes and each warp the chunks it walks
+// (the union of its lanes' masks), in registers; at the end the warp adds
+// them into reach[0] (the (lane, chunk) pairs) and reach[1] (the (warp,
+// chunk) pairs) with one atomic each (ops/cuda_soft.py reads them as the
+// span registry's soft_bwd.lane_chunks and soft_bwd.warp_chunks).
+//
 // Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s float32): a level reads 7
 // planes (rays, throughput), t_ref and 15 carry planes (5 at the last
 // level), 3 image cotangents and 7 of its outputs, and writes 7: at
@@ -169,12 +177,13 @@ __device__ __forceinline__ int lt_slot(const Layout& L, int j) {
   return (j == np + ns ? L.tau : L.tau_z) - L.wall;
 }
 
-template <bool LAST>
+template <bool LAST, bool COUNT>
 __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS)
     soft_level_bwd_kernel(Layout L, const float* __restrict__ g_tab,
                           const float* __restrict__ g_gate, BwdPlanes p,
                           const int* __restrict__ order, double* __restrict__ sums,
-                          u64* __restrict__ fx, double* __restrict__ rows, long long n) {
+                          u64* __restrict__ fx, double* __restrict__ rows,
+                          u64* __restrict__ reach, long long n) {
   constexpr int NC = NCarry<LAST>::value;
   extern __shared__ float4 sm4[];
   float* sm = reinterpret_cast<float*>(sm4);
@@ -197,6 +206,7 @@ __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS)
   const float tau_eff = fmaxf(T0.tau(), 1e-6f);
   const bool has_next = p.cnox != nullptr;
   const int lane = threadIdx.x & 31;
+  [[maybe_unused]] unsigned n_lane = 0, n_warp = 0;  // COUNT: the reach counts
 
   for (long long base = (long long)blockIdx.x * BLOCK; base < n;
        base += (long long)gridDim.x * BLOCK) {
@@ -258,6 +268,10 @@ __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS)
         const int cw0 = T.c0 + 32 * wd;
         const unsigned cull = warp_cull(T, cw0, s_wb, tau_eff);
         const unsigned lm = valid ? lane_mask(T, cull, cw0, r, oo, dod, iv, tau_eff) : 0u;
+        if constexpr (COUNT) {
+          n_lane += __popc(lm);
+          n_warp += __popc(__reduce_or_sync(FULL, lm));
+        }
         for (unsigned um = __reduce_or_sync(FULL, lm); um; um &= um - 1) {
           const int b = __ffs(um) - 1;
           const bool mine = (lm >> b) & 1u;
@@ -289,6 +303,10 @@ __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS)
     }
   }
   ring.finish();
+  if constexpr (COUNT) {
+    const unsigned lanes = __reduce_add_sync(FULL, n_lane);
+    if (lane < 2) atomicAdd(&reach[lane], lane == 0 ? (u64)lanes : (u64)n_warp);
+  }
 
   // ---- the block's small-table sums into its row of `rows` ----
   for (int j = 0; j < n_lt; ++j) warp_row(s_ct, lt_slot(L, j), s_lt[j * BLOCK + threadIdx.x]);
@@ -300,11 +318,11 @@ __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS)
   }
 }
 
-template <bool LAST>
+template <bool LAST, bool COUNT>
 int launch(const Layout& L, const float* tab, const float* gate, const BwdPlanes& p,
-           const int* order, double* sums, u64* fx, double* rows, int n_rows, long long n,
-           cudaStream_t stream) {
-  auto kernel = soft_level_bwd_kernel<LAST>;
+           const int* order, double* sums, u64* fx, double* rows, int n_rows, u64* reach,
+           long long n, cudaStream_t stream) {
+  auto kernel = soft_level_bwd_kernel<LAST, COUNT>;
   const size_t smem = (size_t)smem_bytes(L.n_small, lt_tau(L) + 2);
   const long long blocks = (n + BLOCK - 1) / BLOCK;
   int n_blocks = 0;
@@ -312,7 +330,7 @@ int launch(const Layout& L, const float* tab, const float* gate, const BwdPlanes
                                     blocks < (1 << 30) ? (int)blocks : (1 << 30), &n_blocks);
   if (err != cudaSuccess) return (int)err;
   if (n_blocks > n_rows) return (int)cudaErrorInvalidValue;
-  kernel<<<n_blocks, BLOCK, smem, stream>>>(L, tab, gate, p, order, sums, fx, rows, n);
+  kernel<<<n_blocks, BLOCK, smem, stream>>>(L, tab, gate, p, order, sums, fx, rows, reach, n);
   return (int)cudaGetLastError();
 }
 
@@ -335,8 +353,9 @@ long long soft_level_bwd_smem_bytes(int n_small, int n_lt) { return smem_bytes(n
 // finite or of magnitude 2^40 or more into `sums` (float64, n_tab); writes
 // each block's sums of the small table's cotangent to its row of `rows`
 // (float64, [n_rows, n_small]; a launch uses at most as many blocks as the
-// card holds at once, and fails if that is more than n_rows). At most 2^27
-// lanes. Returns the CUDA error of the launch (0 on success).
+// card holds at once, and fails if that is more than n_rows). With `reach`
+// (int64 [2], else null) adds the launch's reach counts into it. At most
+// 2^27 lanes. Returns the CUDA error of the launch (0 on success).
 int soft_level_bwd_launch(const float* tab, int n_tab, const float* gate, int n_s, int n_s_pad,
                           int n_w, int n_b, int n_pt, int n_sun, int gate_kind,
                           const float* ox, const float* oy, const float* oz, const float* dx,
@@ -345,8 +364,8 @@ int soft_level_bwd_launch(const float* tab, int n_tab, const float* gate, int n_
                           const float* cnox, const float* cnoy, const float* cnoz,
                           const float* cndx, const float* cndy, const float* cndz,
                           const float* cnw, const int* order, float* cts, double* sums,
-                          long long* fx, double* rows, int n_rows, long long n, int is_last,
-                          void* stream) {
+                          long long* fx, double* rows, int n_rows, long long* reach,
+                          long long n, int is_last, void* stream) {
   const Layout L = make_layout(n_s, n_s_pad, n_w, n_b, n_pt, n_sun, gate_kind);
   const bool some = cnox || cnoy || cnoz || cndx || cndy || cndz || cnw;
   const bool all = cnox && cnoy && cnoz && cndx && cndy && cndz && cnw;
@@ -357,8 +376,12 @@ int soft_level_bwd_launch(const float* tab, int n_tab, const float* gate, int n_
                     cnox, cnoy, cnoz, cndx, cndy, cndz, cnw, cts};
   cudaStream_t s = (cudaStream_t)stream;
   u64* q = reinterpret_cast<u64*>(fx);
-  return is_last ? launch<true>(L, tab, gate, p, order, sums, q, rows, n_rows, n, s)
-                 : launch<false>(L, tab, gate, p, order, sums, q, rows, n_rows, n, s);
+  u64* c = reinterpret_cast<u64*>(reach);
+  if (c)
+    return is_last ? launch<true, true>(L, tab, gate, p, order, sums, q, rows, n_rows, c, n, s)
+                   : launch<false, true>(L, tab, gate, p, order, sums, q, rows, n_rows, c, n, s);
+  return is_last ? launch<true, false>(L, tab, gate, p, order, sums, q, rows, n_rows, c, n, s)
+                 : launch<false, false>(L, tab, gate, p, order, sums, q, rows, n_rows, c, n, s);
 }
 
 const char* soft_level_bwd_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -39,6 +39,7 @@ from raytracer_tpu_torch.core.v3 import V3
 from raytracer_tpu_torch.ops.cuda_fold import _srecip, max_c
 from raytracer_tpu_torch.ops.tonemap import reinhard_tonemap
 from raytracer_tpu_torch.ops.trace import raygen_tile
+from raytracer_tpu_torch.utils import profiler
 
 __all__ = ["trace_soft", "trace_soft_reference", "render_soft"]
 
@@ -206,8 +207,9 @@ def trace_soft(scene: Scene, o: V3, d: V3, *, tau=0.02, tau_z=0.05, depth: int =
     o, d = _planes(o, d)
     dev = d.x.device
     tau, tau_z = (torch.as_tensor(x, dtype=torch.float32, device=dev) for x in (tau, tau_z))
-    tables = cuda_soft.soft_tables(scene, tau, tau_z)
-    gates = cuda_soft.soft_gate_tables(scene, tau)
+    with profiler.span("rt.soft_pack"):
+        tables = cuda_soft.soft_tables(scene, tau, tau_z)
+        gates = cuda_soft.soft_gate_tables(scene, tau)
     if torch.is_grad_enabled() and any(
         t.requires_grad for t in (*scene.tensors(), *o, *d, tau, tau_z)
     ):

@@ -43,6 +43,7 @@ from raytracer_tpu_torch.core.types import Scene
 from raytracer_tpu_torch.core.v3 import V3
 from raytracer_tpu_torch.ops import _build
 from raytracer_tpu_torch.ops.trace import MISS_T, REFLECT_EPS, _wall_tables
+from raytracer_tpu_torch.utils import profiler
 
 __all__ = [
     "FUSED_MAX_CHUNKS",
@@ -1069,12 +1070,9 @@ def trace_whole(tables: FusedTables, o: V3, d: V3, w: torch.Tensor, depth: int,
             h, wd, tr, tc, torch.cuda.current_stream(dev).cuda_stream,
         )
         _raise_on(err, lib, "trace_whole")
-        trace_whole.launches += 1
+        profiler.count_launch("trace_whole")
     out = (V3(*rgb), t_out, i_out)
     return out + (res,) if emit_res else out
-
-
-trace_whole.launches = 0
 
 
 def trace_whole_bwd(tables: FusedTables, attrs: torch.Tensor, ls: torch.Tensor,
@@ -1117,11 +1115,8 @@ def trace_whole_bwd(tables: FusedTables, attrs: torch.Tensor, ls: torch.Tensor,
             ga.data_ptr(), gl.data_ptr(), n, torch.cuda.current_stream(dev).cuda_stream,
         )
         _raise_on(err, lib, name)
-        trace_whole_bwd.launches += 1
+        profiler.count_launch("trace_whole_bwd")
     return V3(*cts[:3]), V3(*cts[3:6]), cts[6], ga.float(), gl.float()
-
-
-trace_whole_bwd.launches = 0
 
 # C signatures of the exported functions of csrc/trace_whole.cu and
 # csrc/trace_whole_bwd.cu.

@@ -28,7 +28,7 @@ Each kernel has its plain PyTorch version (``*_reference``), built from
 the per-level chain's plain fold (``cuda_fold._fold``) and its record math
 (``_gather``, ``_kinds``, ``_record_math``); the wrapper runs it for CPU
 tensors and launches the kernel for CUDA tensors, or raises. Each wrapper
-counts its launches in ``.launches``. A lane whose alive plane ``w`` is 0
+counts its launches (``profiler.count_launch``). A lane whose alive plane ``w`` is 0
 is dead: both versions give it a miss record, ``(MISS_T, -1)``, the point
 ``o + d``, the normal (0, 0, 1) and zero materials.
 
@@ -67,6 +67,7 @@ from raytracer_tpu_torch.ops.cuda_fold import (
     _srecip,
 )
 from raytracer_tpu_torch.ops.trace import MISS_T
+from raytracer_tpu_torch.utils import profiler
 
 __all__ = [
     "N_RECORD",
@@ -345,11 +346,8 @@ def fold_flat(tables: FusedTables, o: V3, d: V3):
             *cuda_level._ptrs((*o, *d, t, i)), t.numel(), _stream(dev),
         )
         _raise_on(err, lib, "fold_flat")
-        fold_flat.launches += 1
+        profiler.count_launch("fold_flat")
     return t, i
-
-
-fold_flat.launches = 0
 
 
 def _check_shortlist_call(tables, shortlist, o, d, w, tile, name):
@@ -380,7 +378,7 @@ def _fold_shortlist_cuda(tables, shortlist, o, d, w, tile, record: bool):
             _stream(dev),
         )
         _raise_on(err, lib, "fold_shortlist")
-        (fold_shortlist_hit if record else fold_shortlist).launches += 1
+        profiler.count_launch("fold_shortlist_hit" if record else "fold_shortlist")
     return (t, i, *rec) if record else (t, i)
 
 
@@ -397,9 +395,6 @@ def fold_shortlist(tables: FusedTables, shortlist, o: V3, d: V3, w: torch.Tensor
     return _fold_shortlist_cuda(tables, shortlist, o, d, w, tile, record=False)
 
 
-fold_shortlist.launches = 0
-
-
 def fold_shortlist_hit(tables: FusedTables, shortlist, o: V3, d: V3, w: torch.Tensor,
                        tile=None):
     """The hit record of every lane of the ``[H, W]`` planes: the 16 planes
@@ -411,9 +406,6 @@ def fold_shortlist_hit(tables: FusedTables, shortlist, o: V3, d: V3, w: torch.Te
     if w.device.type == "cpu":
         return fold_shortlist_hit_reference(tables, shortlist, o, d, w, tile)
     return _fold_shortlist_cuda(tables, shortlist, o, d, w, tile, record=True)
-
-
-fold_shortlist_hit.launches = 0
 
 
 # ---------------------------------------------------------------------------

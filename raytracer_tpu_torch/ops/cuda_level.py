@@ -31,8 +31,8 @@ Every kernel has its plain PyTorch version here (``ray_stats_reference``,
 ``trace_level_reference``, and ``trace_level_bwd_reference``, which
 ops/cuda_fold.py's whole-trace backward reference shares), which the
 wrapper runs for CPU tensors; for CUDA tensors it launches the kernel or
-raises. Each wrapper counts its launches in ``.launches``. The chain gives
-the same selections as the whole-trace kernel: the shortlists are
+raises. Each wrapper counts its launches (``profiler.count_launch``). The
+chain gives the same selections as the whole-trace kernel: the shortlists are
 conservative (a padded segment box, and a reach union without the best t),
 the gates per lane are the same, and the fold breaks ties on the global
 index, so the order of a list does not change the result.
@@ -68,6 +68,7 @@ from raytracer_tpu_torch.ops.cuda_fold import (
     trace_level_bwd_reference,
 )
 from raytracer_tpu_torch.ops.trace import MISS_T
+from raytracer_tpu_torch.utils import profiler
 
 __all__ = [
     "LEVEL_TILE",
@@ -283,19 +284,20 @@ def phase_a(stats: torch.Tensor, tables: FusedTables):
     stable sort), and ``counts`` the accepted number, or -1 for a tile with
     no alive lane. Plain PyTorch on the stats' device, with no host sync.
     """
-    cols = tables.cols
-    lo = stats[:, 0:3, None] - _AABB_PAD
-    hi = stats[:, 3:6, None] + _AABB_PAD
-    accept = ((cols["c_lo"] <= hi) & (cols["c_hi"] >= lo)).all(dim=1)
-    accept = accept & (stats[:, NSTAT:] > 0.0)
-    cen = stats[:, 6:9, None] / torch.clamp_min(stats[:, 9:10, None], 1.0)
-    g = cols["c_g"]
-    dist = torch.sqrt(
-        (cen[:, 0] - g[0]) ** 2 + (cen[:, 1] - g[1]) ** 2 + (cen[:, 2] - g[2]) ** 2
-    ) - cols["gr"]
-    order = torch.argsort(torch.where(accept, dist, _BIG), dim=1, stable=True)
-    counts = torch.where(stats[:, 10] > 0.0, accept.sum(dim=1), -1)
-    return order.to(torch.int32), counts.to(torch.int32)
+    with profiler.span("rt.phase_a"):
+        cols = tables.cols
+        lo = stats[:, 0:3, None] - _AABB_PAD
+        hi = stats[:, 3:6, None] + _AABB_PAD
+        accept = ((cols["c_lo"] <= hi) & (cols["c_hi"] >= lo)).all(dim=1)
+        accept = accept & (stats[:, NSTAT:] > 0.0)
+        cen = stats[:, 6:9, None] / torch.clamp_min(stats[:, 9:10, None], 1.0)
+        g = cols["c_g"]
+        dist = torch.sqrt(
+            (cen[:, 0] - g[0]) ** 2 + (cen[:, 1] - g[1]) ** 2 + (cen[:, 2] - g[2]) ** 2
+        ) - cols["gr"]
+        order = torch.argsort(torch.where(accept, dist, _BIG), dim=1, stable=True)
+        counts = torch.where(stats[:, 10] > 0.0, accept.sum(dim=1), -1)
+        return order.to(torch.int32), counts.to(torch.int32)
 
 
 def trace_level_reference(tables: FusedTables, shortlist, o: V3, d: V3, w: torch.Tensor,
@@ -510,11 +512,8 @@ def _ray_stats_cuda(tables, o, d, w, tile):
             _stream(w.device),
         )
         _raise_on(err, lib, "ray_stats")
-        ray_stats.launches += 1
+        profiler.count_launch("ray_stats")
     return stats
-
-
-ray_stats.launches = 0
 
 
 def trace_level(tables: FusedTables, shortlist, o: V3, d: V3, w: torch.Tensor, acc: V3,
@@ -574,11 +573,8 @@ def _trace_level_cuda(tables, shortlist, o, d, w, acc, t_out, i_out, nxt, is_las
             shape[0], shape[1], tr, tc, int(is_last), _stream(w.device),
         )
         _raise_on(err, lib, "trace_level")
-        trace_level.launches += 1
+        profiler.count_launch("trace_level")
     return stats
-
-
-trace_level.launches = 0
 
 
 def trace_levels(tables: FusedTables, o: V3, d: V3, w: torch.Tensor, depth: int,
@@ -690,11 +686,8 @@ def _trace_level_bwd_cuda(tables, attrs, ls, o, d, w, t_k, i_k, ct_acc, ct_next,
             *_ptrs(sums), n, int(is_last), _stream(w.device),
         )
         _raise_on(err, lib, "trace_level_bwd")
-        trace_level_bwd.launches += 1
+        profiler.count_launch("trace_level_bwd")
     return list(cts)
-
-
-trace_level_bwd.launches = 0
 
 
 def trace_levels_bwd(tables: FusedTables, attrs: torch.Tensor, ls: torch.Tensor,

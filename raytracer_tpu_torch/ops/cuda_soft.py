@@ -81,6 +81,7 @@ from raytracer_tpu_torch.ops.cuda_fold import (
 )
 from raytracer_tpu_torch.ops.cuda_level import _ptrs, _stream
 from raytracer_tpu_torch.ops.trace import REFLECT_EPS, _wall_tables
+from raytracer_tpu_torch.utils import profiler
 
 __all__ = [
     "SOFT_CHUNK",
@@ -684,12 +685,9 @@ def _soft_level_cuda(tables, gates, o, d, w, acc, is_last, emit_res, order):
             w.numel(), int(is_last), int(emit_res), _stream(dev),
         )
         _raise_on(err, lib, "soft_level")
-        soft_level.launches += 1
+        profiler.count_launch("soft_level")
     return (V3(out[0], out[1], out[2]), out[3], V3(out[4], out[5], out[6]),
             V3(out[7], out[8], out[9]), out[10:] if emit_res else None)
-
-
-soft_level.launches = 0
 
 
 def soft_level_bwd(tables: SoftTables, gates: torch.Tensor, o: V3, d: V3, w: torch.Tensor,
@@ -737,23 +735,24 @@ def _soft_level_bwd_cuda(tables, gates, o, d, w, res, ct_acc, ct_next, is_last, 
         # A row a block: at most as many blocks as fit on the card at once.
         n_rows = torch.cuda.get_device_properties(dev).multi_processor_count * (2048 // _BLOCK)
         rows = torch.zeros((n_rows, sums.numel() - wall), dtype=torch.float64, device=dev)
+        # While a request is recorded: its (lane, chunk) pairs whose exact gate
+        # passes, and the chunks its warps walk (the union of their lanes').
+        reach = profiler.device_counters("soft_bwd", ("lane_chunks", "warp_chunks"), dev)
         err = lib.soft_level_bwd_launch(
             *scene, *_ptrs((*o, *d, w)), res.data_ptr(),
             *_ptrs(ct_acc), *_ptrs(ct_next if ct_next is not None else (None,) * 7),
             _ptrs((order,))[0], cts.data_ptr(), sums.data_ptr(), fx.data_ptr(),
-            rows.data_ptr(), n_rows, w.numel(), int(is_last), _stream(dev),
+            rows.data_ptr(), n_rows, _ptrs((reach,))[0], w.numel(), int(is_last), _stream(dev),
         )
         _raise_on(err, lib, name)
-        soft_level_bwd.launches += 1
+        profiler.count_launch("soft_level_bwd")
+        profiler.count("soft_bwd.lanes", w.numel())
         # Sums in an order that does not vary between runs: the spheres'
         # fixed-point table (integer sums) in float64, the blocks' rows of
         # the small table in row order.
         sums += fx[0].double() * _FX_HI + fx[1].double() * _FX_LO
         sums[wall:] += rows.sum(0)
     return list(cts.unbind(0))
-
-
-soft_level_bwd.launches = 0
 
 
 _SPREAD6: dict = {}
@@ -851,14 +850,15 @@ class _SoftTrace(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, ct_r, ct_g, ct_b):
-        packed, gates, *flat = ctx.saved_tensors
-        levels = [(V3(*flat[i:i + 3]), V3(*flat[i + 3:i + 6]), flat[i + 6], flat[i + 7],
-                   flat[i + 8] if ordered else None)
-                  for i, ordered in zip(range(0, len(flat), 9), ctx.ordered)]
-        tables = SoftTables(packed.detach(), ctx.counts)
-        ct = V3(*(c.contiguous() for c in (ct_r, ct_g, ct_b)))
-        ct_o, ct_d, ct_packed = soft_levels_bwd(tables, gates, levels, ct)
-        return None, None, None, ct_packed, *ct_o, *ct_d
+        with profiler.span("rt.soft_bwd"):
+            packed, gates, *flat = ctx.saved_tensors
+            levels = [(V3(*flat[i:i + 3]), V3(*flat[i + 3:i + 6]), flat[i + 6], flat[i + 7],
+                       flat[i + 8] if ordered else None)
+                      for i, ordered in zip(range(0, len(flat), 9), ctx.ordered)]
+            tables = SoftTables(packed.detach(), ctx.counts)
+            ct = V3(*(c.contiguous() for c in (ct_r, ct_g, ct_b)))
+            ct_o, ct_d, ct_packed = soft_levels_bwd(tables, gates, levels, ct)
+            return None, None, None, ct_packed, *ct_o, *ct_d
 
 
 # C signatures of the exported functions of csrc/soft_level.cu and
@@ -872,7 +872,7 @@ _SIGNATURES = {
         "soft_level_error_string": (ctypes.c_char_p, [_I]),
     },
     "soft_level_bwd": {
-        "soft_level_bwd_launch": (_I, _SCENE_ARGTYPES + [_P] * 23 + [_I, _LL, _I, _P]),
+        "soft_level_bwd_launch": (_I, _SCENE_ARGTYPES + [_P] * 23 + [_I, _P, _LL, _I, _P]),
         "soft_level_bwd_smem_bytes": (_LL, [_I, _I]),
         "soft_level_bwd_error_string": (ctypes.c_char_p, [_I]),
     },

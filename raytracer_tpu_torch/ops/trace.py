@@ -32,6 +32,7 @@ from torch.autograd.function import once_differentiable
 from raytracer_tpu_torch.core.types import Camera, Lights, Scene, Sky
 from raytracer_tpu_torch.core.v3 import V3
 from raytracer_tpu_torch.ops.raygen import camera_frame
+from raytracer_tpu_torch.utils import profiler
 
 __all__ = [
     "MISS_T",
@@ -89,21 +90,22 @@ def raygen_tile(
     ``origin - pixel_center``, the reference renderer's flip, which the
     demo scene's layout depends on.
     """
-    rows = height if rows is None else rows
-    frame = camera_frame(camera, width, height)
-    tl = V3.from_stacked(frame.image_top_left)
-    dx = V3.from_stacked(frame.pixel_delta_x)
-    dy = V3.from_stacked(frame.pixel_delta_y)
-    origin = V3.from_stacked(frame.origin)
-    dev = frame.origin.device
-    jj = torch.arange(width, dtype=torch.float32, device=dev)[None, :]
-    ii = torch.arange(rows, dtype=torch.float32, device=dev)[:, None] + row_offset
-    pc = V3(
-        tl.x + dx.x * jj + dy.x * ii,
-        tl.y + dx.y * jj + dy.y * ii,
-        tl.z + dx.z * jj + dy.z * ii,
-    )
-    return origin, (origin - pc).normalized()
+    with profiler.span("rt.raygen"):
+        rows = height if rows is None else rows
+        frame = camera_frame(camera, width, height)
+        tl = V3.from_stacked(frame.image_top_left)
+        dx = V3.from_stacked(frame.pixel_delta_x)
+        dy = V3.from_stacked(frame.pixel_delta_y)
+        origin = V3.from_stacked(frame.origin)
+        dev = frame.origin.device
+        jj = torch.arange(width, dtype=torch.float32, device=dev)[None, :]
+        ii = torch.arange(rows, dtype=torch.float32, device=dev)[:, None] + row_offset
+        pc = V3(
+            tl.x + dx.x * jj + dy.x * ii,
+            tl.y + dx.y * jj + dy.y * ii,
+            tl.z + dx.z * jj + dy.z * ii,
+        )
+        return origin, (origin - pc).normalized()
 
 
 def _wall_tables(walls) -> dict:
@@ -394,15 +396,19 @@ def trace_soa(scene: Scene, o: V3, d: V3, *, depth: int = 3, fold: str = "auto",
 
     if closest_hit_fn is not None:
         return _trace_per_level(scene, o, d, depth, closest_hit_fn)
-    tables = cuda_fold.fused_tables(scene)
+    with profiler.span("rt.pack"):
+        tables = cuda_fold.fused_tables(scene)
     fused = cuda_fold.in_fused_class(tables, depth)
     if _needs_grad(scene, *o, *d):
-        attrs, ls = cuda_fold.attribute_tables(scene)
+        with profiler.span("rt.pack"):
+            attrs, ls = cuda_fold.attribute_tables(scene)
         fn = _WholeTrace if fused else _LevelTrace
-        return V3(*fn.apply(tables, depth, attrs, ls, *o, *d))
-    w = torch.ones(shape, dtype=torch.float32, device=d.x.device)
-    trace = cuda_fold.trace_whole if fused else cuda_level.trace_levels
-    acc, _, _ = trace(tables, o, d, w, depth)
+        with profiler.span("rt.trace"):
+            return V3(*fn.apply(tables, depth, attrs, ls, *o, *d))
+    with profiler.span("rt.trace"):
+        w = torch.ones(shape, dtype=torch.float32, device=d.x.device)
+        trace = cuda_fold.trace_whole if fused else cuda_level.trace_levels
+        acc, _, _ = trace(tables, o, d, w, depth)
     return acc
 
 

@@ -27,6 +27,7 @@ from raytracer_tpu_torch.parallel import comm
 from raytracer_tpu_torch.parallel.mesh import PRIM_AXIS, Mesh
 from raytracer_tpu_torch.parallel.render import hard_tile, soft_tile
 from raytracer_tpu_torch.render.integrator import render
+from raytracer_tpu_torch.utils import profiler
 
 __all__ = ["FitState", "make_fit_step", "default_params", "merge_params"]
 
@@ -158,23 +159,29 @@ def make_fit_step(
                 tau=None) -> tuple[FitState, torch.Tensor]:
         if tau is not None and not soft:
             raise ValueError("tau is the soft renderer's temperature; this step renders hard")
-        state.optimizer.zero_grad(set_to_none=True)
-        full = merge(scene, state.params)
-        if mesh is not None:
-            loss = _mesh_loss(state, full, camera, target, tau)
-        else:
-            if soft:
-                img = render_soft(full, camera, width, height,
-                                  tau=soft_tau if tau is None else tau, tau_z=soft_tau_z,
-                                  tonemap=tonemap, depth=depth, device=device)
+        with profiler.request("rt.fit_step"):  # a step is a request of the span registry
+            with profiler.span("rt.adam"):
+                state.optimizer.zero_grad(set_to_none=True)
+            if mesh is not None:
+                loss = _mesh_loss(state, merge(scene, state.params), camera, target, tau)
             else:
-                img = render(full, camera, width, height, depth=depth, tonemap=tonemap,
-                             device=device)
-            loss = torch.mean((img - target) ** 2)
-            loss.backward()
-            loss = loss.detach()
-        state.optimizer.step()
-        state.step += 1
-        return state, loss
+                with profiler.span("rt.forward"):
+                    full = merge(scene, state.params)
+                    if soft:
+                        img = render_soft(full, camera, width, height,
+                                          tau=soft_tau if tau is None else tau,
+                                          tau_z=soft_tau_z, tonemap=tonemap, depth=depth,
+                                          device=device)
+                    else:
+                        img = render(full, camera, width, height, depth=depth,
+                                     tonemap=tonemap, device=device)
+                    loss = torch.mean((img - target) ** 2)
+                with profiler.span("rt.backward"):
+                    loss.backward()
+                loss = loss.detach()
+            with profiler.span("rt.adam"):
+                state.optimizer.step()
+            state.step += 1
+            return state, loss
 
     return init_fn, step_fn

@@ -13,6 +13,7 @@ from raytracer_tpu_torch.core.types import Camera, Scene, resolve_device
 from raytracer_tpu_torch.core.v3 import V3
 from raytracer_tpu_torch.ops.tonemap import reinhard_tonemap
 from raytracer_tpu_torch.ops.trace import closest_hit_soa, raygen_tile, render_tile, trace_soa
+from raytracer_tpu_torch.utils import profiler
 
 __all__ = ["trace_rays", "render", "render_depth"]
 
@@ -82,19 +83,21 @@ def render(
     ``"pallas_flat"`` and ``"jnp"`` run the bounce loop level by level
     around the brute-force fold kernel or the plain fold. ``supersample=k``
     traces k*k rays per pixel on a finer grid and box-filters the radiance
-    before the tone map. ``device=None`` renders on CUDA.
+    before the tone map. ``device=None`` renders on CUDA. A frame is a
+    request of the span registry (``rt.render``, ``utils/profiler.py``).
     """
-    dev = resolve_device(device)
-    scene, camera = scene.to(dev), camera.to(dev)
-    ss = supersample
-    rw, rh = width * ss, height * ss
-    rows = _row_chunks(rw, rh, row_chunk * ss if row_chunk else 0)
-    rows -= rows % ss  # keep chunk boundaries on whole-pixel rows
-    rows = max(rows, ss)
-    img = _trace_rows(scene, camera, rw, rh, 0, rh, rows, depth=depth, fold=fold)
-    if ss > 1:
-        img = img.reshape(height, ss, width, ss, 3).mean(dim=(1, 3))
-    return reinhard_tonemap(img) if tonemap else img
+    with profiler.request("rt.render"):
+        dev = resolve_device(device)
+        scene, camera = scene.to(dev), camera.to(dev)
+        ss = supersample
+        rw, rh = width * ss, height * ss
+        rows = _row_chunks(rw, rh, row_chunk * ss if row_chunk else 0)
+        rows -= rows % ss  # keep chunk boundaries on whole-pixel rows
+        rows = max(rows, ss)
+        img = _trace_rows(scene, camera, rw, rh, 0, rh, rows, depth=depth, fold=fold)
+        if ss > 1:
+            img = img.reshape(height, ss, width, ss, 3).mean(dim=(1, 3))
+        return reinhard_tonemap(img) if tonemap else img
 
 
 def render_depth(

@@ -1,15 +1,28 @@
-"""Timing on the card with CUDA events: device time of a call, the frame
-time of a render, the forward and backward of the hard-path gradient, and
-the fit step, each on one device or sharded over a mesh
-(``parallel/mesh.py``), and the sharded frame over growing rank counts;
-per-phase host timers (``PhaseTimer``) and a profiler trace of a block
-(``trace_capture``)."""
+"""Spans and counters inside the program, timing on the card with CUDA
+events, and the operator's views of both.
+
+- The registry: spans at the program's layer boundaries (``request`` at an
+  entry point, ``span`` inside it), counters (``count``, the kernels'
+  launches ``count_launch``, and device-side counts a kernel adds into
+  ``device_counters``), kept in memory in bounded rings while recording is
+  on, read by ``snapshot``.
+- Device time of a call, the frame time of a render, the forward and
+  backward of the hard-path gradient, and the fit step, each on one device
+  or sharded over a mesh (``parallel/mesh.py``), and the sharded frame over
+  growing rank counts.
+- Per-phase host timers (``PhaseTimer``) and a profiler trace of a block
+  (``trace_capture``), both showing the registry's spans.
+"""
 
 from __future__ import annotations
 
+import json
+import os
 import statistics
+import threading
 import time
-from collections import defaultdict
+import warnings
+from collections import defaultdict, deque
 from contextlib import contextmanager
 from pathlib import Path
 
@@ -18,6 +31,19 @@ import torch
 from raytracer_tpu_torch.core.types import Camera, Scene, resolve_device
 
 __all__ = [
+    "KERNELS",
+    "request",
+    "span",
+    "count",
+    "count_launch",
+    "launches",
+    "reset_launches",
+    "device_counters",
+    "recording",
+    "snapshot",
+    "reset",
+    "span_totals_ns",
+    "self_ns",
     "PhaseTimer",
     "trace_capture",
     "need_cuda",
@@ -34,15 +60,297 @@ __all__ = [
 # it, so the events bracket device work and not the host's enqueue.
 _SPIN_CYCLES = 1_000_000
 
+# ---------------------------------------------------------------------------
+# The registry: spans and counters inside the program
+# ---------------------------------------------------------------------------
+#
+# A request is the outermost program span: one ``render`` call or one fit
+# step (``request`` at the entry point). Spans inside it (``span``) record
+# their name, start, end, parent and the request's id; counters add into
+# the request. Recording is on only while a ``torch.profiler`` session runs
+# in the process, or inside ``recording()``; the check is made once, at
+# the request's entry. With recording off, ``span`` is one global read that
+# returns the shared no-op ``OFF``: no allocation and no clock read; only
+# the launch counts count. Times are nanoseconds of the clock that
+# ``torch.profiler`` stamps its host events with (Unix time), so a span can
+# be placed on a profiler trace's timeline (``trace_capture``).
+
+SPAN_RING = 1 << 16  # spans kept, over all requests
+REQUEST_RING = 1 << 12  # requests kept
+# The kernels whose launches ``count_launch`` counts.
+KERNELS = ("trace_whole", "trace_whole_bwd", "ray_stats", "trace_level", "trace_level_bwd",
+           "soft_level", "soft_level_bwd", "fold_flat", "fold_shortlist", "fold_shortlist_hit")
+# What torch's sync debug mode warns with at a host sync.
+_SYNC_WARNING = "called a synchronizing CUDA operation"
+
+_autograd_profiler = torch.autograd.profiler  # ``_is_profiler_enabled``: a plain module global
+
+
+class _Off:
+    """The span of what is not recorded: it does nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+OFF = _Off()
+
+
+class _Registry:
+    """The process's recorded requests and spans (bounded rings, what they
+    dropped counted), the launch counts, and the device rings of
+    ``device_counters``."""
+
+    def __init__(self):
+        self.requests = deque()  # finished _Request objects, oldest first
+        self.n_spans = 0  # spans the kept requests hold
+        self.dropped = {"spans": 0, "requests": 0}
+        self.launches = dict.fromkeys(KERNELS, 0)
+        self.forced = 0  # open ``recording()`` blocks
+        self.next_id = 0
+        self.rings = {}  # (prefix, names, device): [int64 ring, next slot]
+        self.open = None  # the request being recorded
+        self.warned = {}  # the registry of warnings raised again after a request
+
+
+_R = _Registry()
+
+
+class _Span:
+    """A recorded span of the open request ``req``."""
+
+    __slots__ = ("req", "name", "id", "parent", "t0", "t1")
+
+    def __init__(self, req, name: str):
+        self.req, self.name = req, name
+
+    def __enter__(self):
+        req = self.req
+        self.id = req.n_spans = req.n_spans + 1
+        self.parent = req.stack[-1]
+        req.stack.append(self.id)
+        self.t0 = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        self.t1 = time.time_ns()
+        req = self.req
+        req.stack.pop()
+        req.spans.append((self.id, self.parent, self.name, self.t0, self.t1,
+                          threading.current_thread().native_id))
+        return False
+
+
+class _Request:
+    """A recorded request: its spans (span 0 is the request itself), its
+    counters, and the host syncs inside it (torch's sync debug mode at
+    "warn" while it is open, its warnings counted as ``syncs``)."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.spans, self.stack, self.n_spans = [], [0], 0
+        self.counters = defaultdict(int)
+        self.slots = {}  # ring key: slot index
+        self._sync = None
+
+    def __enter__(self):
+        _R.next_id += 1
+        self.id = _R.next_id
+        _R.open = self
+        if torch.cuda.is_initialized():
+            self._sync = (torch.cuda.get_sync_debug_mode(), warnings.catch_warnings(record=True))
+            self._caught = self._sync[1].__enter__()
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            self.counters["syncs"] = 0
+        self.t0 = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        self.t1 = time.time_ns()
+        _R.open = None
+        if self._sync is not None:
+            mode, catcher = self._sync
+            torch.cuda.set_sync_debug_mode(mode)
+            catcher.__exit__(None, None, None)
+            for w in self._caught:
+                if _SYNC_WARNING in str(w.message):
+                    self.counters["syncs"] += 1
+                else:  # not ours to keep: warn as it would have
+                    warnings.warn_explicit(w.message, w.category, w.filename, w.lineno,
+                                           registry=_R.warned)
+            self._sync = self._caught = None
+        self.spans.insert(0, (0, -1, self.name, self.t0, self.t1,
+                              threading.current_thread().native_id))
+        self.stack = None
+        _keep(self)
+        return False
+
+
+def _keep(req: _Request) -> None:
+    """Append a finished request to the ring: the oldest requests, with
+    their spans, go while more than ``REQUEST_RING`` requests or
+    ``SPAN_RING`` spans are kept."""
+    _R.requests.append(req)
+    _R.n_spans += len(req.spans)
+    while len(_R.requests) > REQUEST_RING or _R.n_spans > SPAN_RING:
+        old = _R.requests.popleft()
+        _R.n_spans -= len(old.spans)
+        _R.dropped["requests"] += 1
+        _R.dropped["spans"] += len(old.spans)
+
+
+def request(name: str):
+    """The span of a request (the outermost program span: one frame, one
+    fit step): recorded while a ``torch.profiler`` session runs or inside
+    ``recording()``, else ``OFF``. Inside a recorded request it is a span
+    of that request."""
+    req = _R.open
+    if req is not None:
+        return _Span(req, name)
+    if not (_autograd_profiler._is_profiler_enabled or _R.forced):
+        return OFF
+    return _Request(name)
+
+
+def span(name: str):
+    """A span of the open request, or ``OFF`` when none is recorded."""
+    req = _R.open
+    return OFF if req is None else _Span(req, name)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the open request's counter ``name`` (nothing when no
+    request is recorded)."""
+    req = _R.open
+    if req is not None:
+        req.counters[name] += n
+
+
+def count_launch(kernel: str) -> None:
+    """One launch of ``kernel`` (one of ``KERNELS``): counted always, and
+    in the open request as ``launches.<kernel>``."""
+    _R.launches[kernel] += 1
+    req = _R.open
+    if req is not None:
+        req.counters["launches." + kernel] += 1
+
+
+def launches(kernel: str | None = None):
+    """The launches of ``kernel`` counted since ``reset_launches``, or a
+    dict of every kernel's."""
+    return dict(_R.launches) if kernel is None else _R.launches[kernel]
+
+
+def reset_launches() -> None:
+    for k in _R.launches:
+        _R.launches[k] = 0
+
+
+def device_counters(prefix: str, names: tuple, device):
+    """Zeroed int64 counters ``[len(names)]`` on ``device`` that the open
+    request owns (the same tensor on each call within it), for a kernel to
+    add into; ``snapshot`` reads them as ``<prefix>.<name>``. None when no
+    request is recorded. They are a slot of a ring on the device, so
+    nothing is copied to the host while recording."""
+    req = _R.open
+    if req is None:
+        return None
+    key = (prefix, names, torch.device(device))
+    ring = _R.rings.get(key)
+    if ring is None:
+        ring = _R.rings[key] = [torch.zeros((REQUEST_RING, len(names)), dtype=torch.int64,
+                                            device=device), 0]
+    slot = req.slots.get(key)
+    if slot is None:
+        slot = req.slots[key] = ring[1] % REQUEST_RING
+        ring[1] += 1
+        ring[0][slot].zero_()
+    return ring[0][slot]
+
+
+@contextmanager
+def recording():
+    """Record the requests of the block whether or not a profiler runs."""
+    _R.forced += 1
+    try:
+        yield
+    finally:
+        _R.forced -= 1
+
+
+def snapshot() -> dict:
+    """The recorded requests, oldest first, and what the rings dropped:
+    ``{"requests": [...], "dropped": {"spans", "requests"}}``. A request is
+    ``{"id", "name", "start_ns", "end_ns", "spans", "counters"}``, its
+    spans (itself first) ``{"id", "parent", "name", "start_ns", "end_ns",
+    "tid"}`` (parent -1 for the request). Reads the device counters, so
+    call it after recording."""
+    host = {key: ring[0].cpu() for key, ring in _R.rings.items()}
+    out = []
+    for req in _R.requests:
+        counters = dict(req.counters)
+        for key, slot in req.slots.items():
+            counters.update(zip((f"{key[0]}.{n}" for n in key[1]), host[key][slot].tolist()))
+        out.append({"id": req.id, "name": req.name, "start_ns": req.t0, "end_ns": req.t1,
+                    "spans": _span_dicts(req), "counters": counters})
+    return {"requests": out, "dropped": dict(_R.dropped)}
+
+
+def _span_dicts(req: _Request) -> list:
+    return [{"id": sid, "parent": parent, "name": name, "start_ns": t0, "end_ns": t1, "tid": tid}
+            for sid, parent, name, t0, t1, tid in req.spans]
+
+
+def reset() -> None:
+    """Forget every recorded request and span (not the launch counts)."""
+    _R.requests.clear()
+    _R.n_spans = 0
+    _R.dropped = {"spans": 0, "requests": 0}
+
+
+def span_totals_ns(req: dict) -> dict:
+    """Nanoseconds of each span name in a ``snapshot`` request, summed over
+    its spans of that name."""
+    out = defaultdict(int)
+    for s in req["spans"]:
+        out[s["name"]] += s["end_ns"] - s["start_ns"]
+    return dict(out)
+
+
+def self_ns(req: dict, name: str) -> int:
+    """The self time of the spans named ``name`` in a ``snapshot`` request:
+    each one's duration less the part of it that its child spans cover,
+    summed."""
+    total = 0
+    for s in req["spans"]:
+        if s["name"] != name:
+            continue
+        covered, end = 0, s["start_ns"]
+        for c0, c1 in sorted((c["start_ns"], c["end_ns"]) for c in req["spans"]
+                             if c["parent"] == s["id"]):
+            c0, c1 = max(c0, end), min(c1, s["end_ns"])
+            if c1 > c0:
+                covered += c1 - c0
+                end = c1
+        total += s["end_ns"] - s["start_ns"] - covered
+    return total
+
 
 @contextmanager
 def trace_capture(out_dir=None, *, device=None):
     """``torch.profiler`` over the block, written to ``out_dir/trace.json``
     (Chrome trace format: Perfetto or chrome://tracing). It records the
-    host's ops, and the card's kernels when ``device`` (``None``: CUDA) is
-    a CUDA device; the card is synchronized before the block ends.
-    ``out_dir=None`` is a no-op, so a command-line flag can be passed
-    straight through."""
+    host's ops, the card's kernels when ``device`` (``None``: CUDA) is a
+    CUDA device (the card is synchronized before the block ends), and the
+    program's spans of the block's requests, each on its thread's row as an
+    event of category ``program``. ``out_dir=None`` is a no-op, so a
+    command-line flag can be passed straight through."""
     if not out_dir:
         yield
         return
@@ -51,27 +359,47 @@ def trace_capture(out_dir=None, *, device=None):
     if cuda:
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     Path(out_dir).mkdir(parents=True, exist_ok=True)
+    first = _R.next_id
     with torch.profiler.profile(activities=activities) as prof:
         yield
         if cuda:
             torch.cuda.synchronize()
-    prof.export_chrome_trace(str(Path(out_dir) / "trace.json"))
+    path = Path(out_dir) / "trace.json"
+    prof.export_chrome_trace(str(path))
+    trace = json.loads(path.read_text())
+    base = int(trace.get("baseTimeNanoseconds", 0))
+    pid = os.getpid()
+    for req in snapshot()["requests"]:
+        if req["id"] <= first:
+            continue
+        for s in req["spans"]:
+            trace["traceEvents"].append({
+                "ph": "X", "cat": "program", "name": s["name"], "pid": pid, "tid": s["tid"],
+                "ts": (s["start_ns"] - base) / 1e3, "dur": (s["end_ns"] - s["start_ns"]) / 1e3,
+                "args": {"request": req["id"], "span": s["id"], "parent": s["parent"]}})
+    path.write_text(json.dumps(trace))
 
 
 class PhaseTimer:
     """Wall-time samples per named phase, and their averages (the frame
-    loop's exit report)."""
+    loop's exit report). A ``phase`` is a request of the registry with
+    recording on for its block, so the report also gives the per-sample
+    average of each program span inside it."""
 
     def __init__(self):
         self.samples: dict[str, list[float]] = defaultdict(list)
+        # phase -> program span name -> seconds summed over the phase's samples
+        self.spans: dict[str, dict[str, float]] = defaultdict(lambda: defaultdict(float))
 
     @contextmanager
     def phase(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.samples[name].append(time.perf_counter() - t0)
+        with recording():
+            with request(name) as req:
+                yield
+        self.samples[name].append((req.t1 - req.t0) * 1e-9)
+        if isinstance(req, _Request):  # a phase inside a recorded request is a span of it
+            for sid, _, sname, t0, t1, _ in req.spans[1:]:
+                self.spans[name][sname] += (t1 - t0) * 1e-9
 
     def record(self, name: str, seconds: float) -> None:
         self.samples[name].append(seconds)
@@ -80,11 +408,17 @@ class PhaseTimer:
         return {k: sum(v) / len(v) for k, v in self.samples.items() if v}
 
     def report(self) -> str:
-        """One line a phase: its average in ms and its sample count."""
+        """One line a phase: its average in ms and its sample count; then
+        one a program span inside a phase: its average over the phase's
+        samples."""
         lines = [
             f"average {name} time: {avg * 1e3:.3f} ms  ({len(self.samples[name])} samples)"
             for name, avg in sorted(self.averages().items())
         ]
+        for name, spans in sorted(self.spans.items()):
+            n = len(self.samples[name])
+            lines += [f"average {name} > {s} time: {v / n * 1e3:.3f} ms  ({n} samples)"
+                      for s, v in sorted(spans.items())]
         return "\n".join(lines)
 
     def save(self, path) -> None:

@@ -40,6 +40,7 @@ from raytracer_tpu_torch.core.v3 import V3
 from raytracer_tpu_torch.models import scenes as tscenes
 from raytracer_tpu_torch.ops import cuda_fold
 from raytracer_tpu_torch.ops.trace import MISS_T, raygen_tile, trace_soa
+from raytracer_tpu_torch.utils.profiler import launches
 
 torch.set_num_threads(1)
 
@@ -256,7 +257,7 @@ def test_function_gradient_equals_direct_autograd(make, depth):
     o, d = o.broadcast_to(d.x.shape), d.broadcast_to(d.x.shape)
     d = V3(*(c.clone().requires_grad_(True) for c in d))
     ct = torch.from_numpy(np.random.default_rng(1).normal(size=(3, 48, 64)).astype(np.float32))
-    before = cuda_fold.trace_whole_bwd.launches
+    before = launches("trace_whole_bwd")
     got_img = trace_soa(scene, o, d, depth=depth)
     assert got_img.x.grad_fn is not None
     want_img = _direct_trace(scene, o, d, depth)
@@ -265,7 +266,7 @@ def test_function_gradient_equals_direct_autograd(make, depth):
     wrt = leaves + list(d)
     got = torch.autograd.grad(sum((a * c).sum() for a, c in zip(got_img, ct)), wrt, allow_unused=True)
     want = torch.autograd.grad(sum((a * c).sum() for a, c in zip(want_img, ct)), wrt, allow_unused=True)
-    assert cuda_fold.trace_whole_bwd.launches == before
+    assert launches("trace_whole_bwd") == before
     n_nonzero = 0
     for g, w in zip(got, want):
         assert (g is None) == (w is None)

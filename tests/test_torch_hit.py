@@ -39,6 +39,7 @@ from raytracer_tpu_torch.core.v3 import V3
 from raytracer_tpu_torch.models import scenes as tscenes
 from raytracer_tpu_torch.ops import cuda_fold, cuda_hit
 from raytracer_tpu_torch.ops.trace import MISS_T, resolve_fold_fn, trace_soa
+from raytracer_tpu_torch.utils.profiler import launches
 
 torch.set_num_threads(1)
 
@@ -291,14 +292,13 @@ def test_selectors_and_wrappers():
             render(scene, tscenes.reference_demo_camera(device="cpu"), 8, 4, fold=bad, device="cpu")
     tables = cuda_fold.fused_tables(scene)
     w = torch.ones((8, 16))
-    before = [f.launches for f in (cuda_hit.fold_flat, cuda_hit.fold_shortlist,
-                                   cuda_hit.fold_shortlist_hit)]
+    kernels = ("fold_flat", "fold_shortlist", "fold_shortlist_hit")
+    before = [launches(k) for k in kernels]
     t, i = cuda_hit.fold_flat(tables, o, d)
     t2, i2 = cuda_hit.fold_shortlist(tables, None, o, d, w)
     rec = cuda_hit.fold_shortlist_hit(tables, None, o, d, w)
     assert torch.equal(i, i2) and torch.equal(t, t2) and torch.equal(rec[1], i)
-    assert before == [f.launches for f in (cuda_hit.fold_flat, cuda_hit.fold_shortlist,
-                                           cuda_hit.fold_shortlist_hit)]
+    assert before == [launches(k) for k in kernels]
     with pytest.raises(ValueError, match="float32"):
         cuda_hit.fold_flat(tables, o, V3(d.x.double(), d.y, d.z))
     with pytest.raises(ValueError, match="contiguous"):

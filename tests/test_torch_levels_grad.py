@@ -30,6 +30,7 @@ from raytracer_tpu_torch.core.v3 import V3
 from raytracer_tpu_torch.models import scenes as tscenes
 from raytracer_tpu_torch.ops import cuda_fold, cuda_level
 from raytracer_tpu_torch.ops.trace import raygen_tile, trace_soa
+from raytracer_tpu_torch.utils.profiler import launches
 from test_torch_grad import H, W, _direct_trace, _excluded_lanes, leaf_grads
 
 torch.set_num_threads(1)
@@ -126,8 +127,8 @@ def test_level_trace_gradient_equals_direct_autograd(make, depth):
     o, d = o.broadcast_to(d.x.shape), d.broadcast_to(d.x.shape)
     d = V3(*(c.clone().requires_grad_(True) for c in d))
     ct = torch.from_numpy(np.random.default_rng(2).normal(size=(3, 24, 40)).astype(np.float32))
-    counters = (cuda_fold.trace_whole_bwd, cuda_level.trace_level_bwd)
-    before = [f.launches for f in counters]
+    counters = ("trace_whole_bwd", "trace_level_bwd")
+    before = [launches(k) for k in counters]
     got_img = trace_soa(scene, o, d, depth=depth)
     assert type(got_img.x.grad_fn).__name__.startswith("_LevelTrace")
     want_img = _direct_trace(scene, o, d, depth)
@@ -136,7 +137,7 @@ def test_level_trace_gradient_equals_direct_autograd(make, depth):
     wrt = leaves + list(d)
     got = torch.autograd.grad(sum((a * c).sum() for a, c in zip(got_img, ct)), wrt, allow_unused=True)
     want = torch.autograd.grad(sum((a * c).sum() for a, c in zip(want_img, ct)), wrt, allow_unused=True)
-    assert [f.launches for f in counters] == before
+    assert [launches(k) for k in counters] == before
     n_nonzero = 0
     for g, w in zip(got, want):
         assert (g is None) == (w is None)
@@ -211,13 +212,13 @@ def test_fit_step_on_level_route_with_optimizer():
                                               {"params": [q["center"]], "lr": 0.0}]),
     )
     state = init_fn(start)
-    before = cuda_level.trace_level_bwd.launches
+    before = launches("trace_level_bwd")
     losses = [float(step_fn(state, start, cam, target)[1]) for _ in range(3)]
     assert losses[-1] < losses[0] and np.isfinite(losses).all()
     assert torch.equal(state.params["center"], start.spheres.center)
     assert not torch.equal(state.params["color"], start.spheres.material.color)
     assert float(state.params["center"].grad.abs().max()) > 0
-    assert cuda_level.trace_level_bwd.launches == before
+    assert launches("trace_level_bwd") == before
 
 
 def test_trace_soa_cpu_runs_plain_chain():
@@ -228,13 +229,12 @@ def test_trace_soa_cpu_runs_plain_chain():
     tables = cuda_fold.fused_tables(scene)
     assert not cuda_fold.in_fused_class(tables, 2)
     o, d, ones = _frame(48, 24)
-    counters = (cuda_fold.trace_whole, cuda_level.ray_stats, cuda_level.trace_level,
-                cuda_level.trace_level_bwd)
-    before = [f.launches for f in counters]
+    counters = ("trace_whole", "ray_stats", "trace_level", "trace_level_bwd")
+    before = [launches(k) for k in counters]
     acc = trace_soa(scene, o, d, depth=2)
     want, _, _ = cuda_level.trace_levels(tables, o, d, ones, 2)
     assert all(torch.equal(a, b) for a, b in zip(acc, want))
-    assert [f.launches for f in counters] == before
+    assert [launches(k) for k in counters] == before
 
 
 def test_ragged_tiles_count_real_lanes():

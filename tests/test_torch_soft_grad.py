@@ -33,6 +33,7 @@ from raytracer_tpu_torch.diff import soft as tsoft
 from raytracer_tpu_torch.models import scenes as tscenes
 from raytracer_tpu_torch.ops import cuda_soft
 from raytracer_tpu_torch.ops.trace import raygen_tile
+from raytracer_tpu_torch.utils.profiler import launches
 
 torch.set_num_threads(1)
 
@@ -231,7 +232,7 @@ def test_soft_level_wrappers():
     o, d = camera_rays()
     w = torch.ones_like(d.x)
     acc = V3(*(torch.zeros_like(w) for _ in range(3)))
-    launches = (cuda_soft.soft_level.launches, cuda_soft.soft_level_bwd.launches)
+    before = (launches("soft_level"), launches("soft_level_bwd"))
     with torch.no_grad():
         out = cuda_soft.soft_level(tables, gates, o, d, w, acc, False, True)
         want = cuda_soft.soft_level_reference(tables, o, d, w, acc, False, True)
@@ -246,7 +247,7 @@ def test_soft_level_wrappers():
     sums = torch.zeros(tables.packed.shape, dtype=torch.float64)
     with pytest.raises(ValueError, match="shape"):
         cuda_soft.soft_level_bwd(tables, gates, o, d, w, out[4], acc, None, True, sums)
-    assert (cuda_soft.soft_level.launches, cuda_soft.soft_level_bwd.launches) == launches
+    assert (launches("soft_level"), launches("soft_level_bwd")) == before
     # All rays look away from the scene.
     center = scene.spheres.center.clone().requires_grad_(True)
     far = scene.replace(spheres=scene.spheres.replace(center=center))

@@ -40,6 +40,7 @@ from raytracer_tpu_torch.core.v3 import V3
 from raytracer_tpu_torch.models import scenes as tscenes
 from raytracer_tpu_torch.ops import cuda_fold
 from raytracer_tpu_torch.ops.trace import MISS_T, trace_soa
+from raytracer_tpu_torch.utils.profiler import launches
 
 torch.set_num_threads(1)
 
@@ -190,14 +191,14 @@ def test_trace_soa_cpu_runs_plain_version():
     d /= np.linalg.norm(d, axis=0)
     o = V3(*(torch.zeros(()) for _ in range(3)))
     dv = V3(*(torch.from_numpy(c) for c in d))
-    before = cuda_fold.trace_whole.launches
+    before = launches("trace_whole")
     acc = trace_soa(scene, o, dv, depth=2)
     want, _, _ = cuda_fold.trace_whole_reference(
         tables, o.broadcast_to((8, 16)), dv, torch.ones((8, 16)), 2
     )
     for a, b in zip(acc, want):
         assert torch.equal(a, b)
-    assert cuda_fold.trace_whole.launches == before
+    assert launches("trace_whole") == before
 
 
 def test_trace_whole_checks_inputs_and_dead_lanes():
