@@ -468,6 +468,10 @@ def run_cell(spec: Spec, seed: int, seconds: float, trace: bool, device, t_start
         if t["soft"]:
             ctx["work"].update(soft_fwd=work.soft_fwd(ctx["counts"], levels),
                                soft_bwd=work.soft_bwd(ctx["counts"], levels))
+        else:
+            lanes = t["width"] * t["height"]
+            ctx["work"].update(level_fwd=work.level_fwd(ctx["counts"], levels, lanes),
+                               level_bwd=work.level_bwd(ctx["counts"], levels, lanes))
     _log(f"reference and comparison: {time.perf_counter() - a:.1f} s")
     metrics = {}
     for m in (spec.per_layer if trace else spec.end_to_end):

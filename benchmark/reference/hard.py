@@ -7,7 +7,12 @@ gates, no shortlists): a sphere's near root ``-b - sqrt(b^2 - c)`` in the
 least positive distance winning and ties going to the lower index (spheres
 first). The selection carries no gradient; the hit point, normal, shading
 and bounce are differentiable in the sphere centres and colours at that
-selection, which is the gradient the program's hard fit takes. Frames are
+selection, which is the gradient the program's hard fit takes. The mirror
+bounce is the upstream renderer's ``reflect`` (``vec.cpp``), which makes
+both the incoming direction and the normal unit first: a hit point that
+rounding leaves off its sphere gives a normal a little off unit length, and
+without that the bounce would grow the direction at every level, which the
+next level's root (taking ``|d|`` as 1) does not allow for. Frames are
 computed in blocks of rows, and each level searches only the lanes whose
 throughput is still above 0.
 """
@@ -23,6 +28,7 @@ from benchmark.reference.common import (
     max_c,
     camera_rays,
     dot,
+    normalize,
     row_blocks,
     sky,
     tonemap,
@@ -100,7 +106,8 @@ def closest_hit(scene: dict, basis, o: torch.Tensor, d: torch.Tensor):
 def _level(scene: dict, suns, o, d, w, t_sel, idx, is_last: bool):
     """One level's shading, accumulation and bounce at a fixed selection:
     ``(increment, w_next, o_next, d_next)``; differentiable in the scene's
-    sphere leaves and the rays."""
+    sphere leaves and the rays. A hit's next ray leaves ``REFLECT_EPS``
+    along the unit normal, in the upstream's reflected direction."""
     n_s = scene["sph_radius"].shape[0]
     n_m = scene["wall_length"].shape[0]
     hit = idx >= 0
@@ -137,8 +144,9 @@ def _level(scene: dict, suns, o, d, w, t_sel, idx, is_last: bool):
     colour = local if is_last else local * (1.0 - met)[:, None]
     inc = torch.where((hit & (w > 0.0))[:, None], colour, sky(d, scene)) * w[:, None]
     w_next = w * torch.where(hit, met, 0.0)
-    o_next = torch.where(hit[:, None], point + normal * REFLECT_EPS, o)
-    d_next = torch.where(hit[:, None], d - normal * (2.0 * dot(d, normal))[:, None], d)
+    d_hat, n_hat = normalize(d), normalize(normal)
+    o_next = torch.where(hit[:, None], point + n_hat * REFLECT_EPS, o)
+    d_next = torch.where(hit[:, None], d_hat - n_hat * (2.0 * dot(d_hat, n_hat))[:, None], d)
     return inc, w_next, o_next, d_next
 
 

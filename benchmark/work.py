@@ -7,9 +7,10 @@ counts that the reference works out on the traced run's own inputs: each
 level's alive lanes, their hits by kind, and the (ray, sphere) pairs of
 nonzero soft coverage. Only the work that any implementation of the
 function has to do is counted: each alive lane tests every wall, the sphere
-it hits, shades its hit or looks up the sky; each covering (ray, sphere)
-pair is composited once. No chunk, gate, shortlist or tile of the program
-enters, so the bound reads the same work whatever implements the function.
+it hits, shades its hit or looks up the sky, and in a backward runs the
+adjoint of each; each covering (ray, sphere) pair is composited once. No
+chunk, gate, shortlist or tile of the program enters, so the bound reads
+the same work whatever implements the function.
 Bytes count each input plane read once and each output plane written once.
 """
 
@@ -43,6 +44,26 @@ def level_fwd(c: dict, levels: list, lanes: int) -> dict:
         ops += (19 + 39 * c["n_w"] + 14) * lv["alive"] + 25 * lv["used"]
         ops += (22 + 38 + shade) * lv["sphere"] + (22 + shade) * lv["wall"] + 6 * lv["miss"]
     nbytes = (7 + 3 + 2 * len(levels)) * lanes * 4
+    return {"ops": ops, "bytes": nbytes, "s": bound_s(ops, nbytes)}
+
+
+def level_bwd(c: dict, levels: list, lanes: int) -> dict:
+    """The hard trace's backward over ``lanes`` camera rays through
+    ``len(levels)`` levels, at the forward's selections: per alive lane a
+    sphere hit replays its record and runs its adjoint (113), a wall hit
+    (80); each hit the bounce's and the accumulation's adjoint (88), each
+    point light's shading twice and its adjoint (180) and each sun's (135),
+    and sums its 14 attribute and 6 per-light cotangents; a miss runs the
+    sky's adjoint (51) and sums its 10 sky cotangents. Reads the 7 ray
+    planes, the rgb cotangent and each level's t and index; writes the 7
+    ray-plane cotangents and the sphere leaves' cotangent rows (centre and
+    colour, 6 a sphere)."""
+    n_l = c["n_pt"] + c["n_sun"]
+    hit = 88 + 180 * c["n_pt"] + 135 * c["n_sun"] + 14 + 6 * n_l
+    ops = 0.0
+    for lv in levels:
+        ops += (113 + hit) * lv["sphere"] + (80 + hit) * lv["wall"] + 61 * lv["miss"]
+    nbytes = ((7 + 3 + 2 * len(levels) + 7) * lanes + 6 * c["n_s"]) * 4
     return {"ops": ops, "bytes": nbytes, "s": bound_s(ops, nbytes)}
 
 
@@ -90,5 +111,5 @@ def soft_bwd(c: dict, levels: list) -> dict:
 
 def counts_of(arrays: dict) -> dict:
     """The primitive and light counts the formulas read."""
-    return {"n_w": len(arrays["wall_length"]), "n_pt": len(arrays["light_pos"]),
-            "n_sun": len(arrays["sun_dir"])}
+    return {"n_s": len(arrays["sph_radius"]), "n_w": len(arrays["wall_length"]),
+            "n_pt": len(arrays["light_pos"]), "n_sun": len(arrays["sun_dir"])}
