@@ -159,6 +159,21 @@ it as ``--soft-compare`` does. The five modes share one harness
 
 ``--dist-only`` builds the kernels and runs the distribution phase alone,
 and exits non-zero if any of its checks fails.
+
+    python3 chip_smoke.py --bounce-only [--root DIR]
+
+``--bounce-only`` checks the hard path's bounce, the upstream's reflect, on
+the package at DIR (default: beside this script): the whole-trace kernels
+(grid-64) and the per-level kernels (grid-1024) against their plain
+versions, backwards included, and the per-level loop around the
+shortlist-hit kernel against the chain, all at 1920x1080 d4 on frames whose
+first rows graze the spheres, with every level's direction unit to 1e-6;
+c5's frame (grid-1024, 3840x2160 d4) finite at the pixels that overflowed
+under the old bounce; ``make_fit_step(3840, 2160, depth=4)`` from three
+seeds' start draws with finite losses and gradients and its memory peak;
+then the changed kernels' times (c5's levels, grid-768 and sprint3) and
+their ``ptxas -v`` registers and spills, and one JSON line of them all. It
+exits non-zero if a check fails.
 """
 
 from __future__ import annotations
@@ -365,20 +380,19 @@ def whole_bwd_bound(tables, levels, depth: int) -> dict:
     return out
 
 
-def check_trace_whole(case, device, scale: int = 1) -> dict:
+def check_trace_whole(case, device, scale: int = 1, rays=None) -> dict:
     """The kernel against its plain version on one workload: selections,
-    t and rgb, then both timed with CUDA events."""
+    t and rgb, then both timed with CUDA events. ``rays`` (``(o, d, w)``
+    planes of the case's frame) stand in for the demo camera's."""
     from raytracer_tpu_torch.models import scenes
     from raytracer_tpu_torch.ops import cuda_fold
-    from raytracer_tpu_torch.ops.trace import MISS_T, raygen_tile
+    from raytracer_tpu_torch.ops.trace import MISS_T
     from raytracer_tpu_torch.utils.profiler import cuda_time_ms
 
     name, (factory, args), width, height, depth = case
     width, height = max(width // scale, 1), max(height // scale, 1)
     scene = getattr(scenes, factory)(*args, device=device)
-    o, d = raygen_tile(scenes.reference_demo_camera(device=device), width, height)
-    o, d = o.broadcast_to(d.x.shape), d.broadcast_to(d.x.shape)
-    w = torch.ones(d.x.shape, dtype=torch.float32, device=device)
+    o, d, w = frame_rays(width, height, device) if rays is None else rays
     tables = cuda_fold.fused_tables(scene)
     rgb_k, t_k, i_k = cuda_fold.trace_whole(tables, o, d, w, depth)
     rgb_p, t_p, i_p = cuda_fold.trace_whole_reference(tables, o, d, w, depth)
@@ -685,7 +699,7 @@ def accepted(shortlist) -> torch.Tensor:
     return mask.scatter_(1, chunk_list.long(), pos[None] < counts[:, None].clamp_min(0))
 
 
-def check_levels(case, device, timed: bool = False, tile=None) -> dict:
+def check_levels(case, device, timed: bool = False, tile=None, rays=None) -> dict:
     """The per-level kernels against their plain versions on one workload.
 
     Kernel 3 (``ray_stats``) against ``ray_stats_reference`` on the frame's
@@ -697,14 +711,15 @@ def check_levels(case, device, timed: bool = False, tile=None) -> dict:
     (``trace_levels_bwd``, kernel 5) against the whole-trace backward's plain
     version on the kernel chain's residuals. With ``timed``, each kernel's
     device time per launch, its plain version's, and the bounds of this
-    run's data."""
+    run's data. ``rays`` (``(o, d, w)`` planes of the case's frame) stand
+    in for the demo camera's."""
     from raytracer_tpu_torch.core.v3 import V3
     from raytracer_tpu_torch.ops import cuda_fold, cuda_level
     from raytracer_tpu_torch.ops.trace import MISS_T
 
     name, spec, width, height, depth = case
     scene = make_scene(spec, device)
-    o, d, w = frame_rays(width, height, device)
+    o, d, w = frame_rays(width, height, device) if rays is None else rays
     tables = cuda_fold.fused_tables(scene)
     per_tile = cuda_level.uses_shortlists(tables)
     n_c = tables.counts["n_c"]
@@ -2448,6 +2463,292 @@ def print_dist(d: dict, smi: str):
             print(f"dist rank {r['rank']} of 2 fit step mesh 2x1 {name}: {f}", flush=True)
     print(f"dist two ranks: {d['two_ranks_seconds']:.1f} s with spawn and start-up; "
           f"card {smi}; ok={d['ok']}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# The hard path's bounce: the upstream's reflect on every hard route
+# ---------------------------------------------------------------------------
+
+# Pixels (row, column) of c5's frame (grid-1024, 3840x2160, depth 4, the
+# demo camera) that were not finite while the bounce took the float32 normal
+# as it came, and seeds whose c5 hard fit's first loss was NaN then.
+F1_PIXELS = ((1026, 536), (1046, 672), (1088, 276), (1548, 687))
+F1_SEEDS = (5000000001, 6000000001, 6000000002)
+# The bounce checks' workloads: the whole-trace route (grid-64) and the
+# per-level chain (grid-1024), each frame's first GRAZE_ROWS rows planted to
+# graze the spheres (``grazing_rays``).
+BOUNCE_CASES = (
+    ("grid64_1920x1080_d4", ("grid_sphere_scene", (64,)), 1920, 1080, 4),
+    ("grid1024_1920x1080_d4", ("grid_sphere_scene", (1024,)), 1920, 1080, 4),
+)
+GRAZE_ROWS = 128
+# The largest | |d| - 1 | of a level's direction the bounce may leave.
+UNIT_TOL = 1e-6
+
+
+def grazing_rays(scene, width: int, height: int, device, rows: int = GRAZE_ROWS):
+    """The demo camera's rays at ``width`` x ``height`` (``frame_rays``) with
+    the first ``rows`` rows replaced by rays from its eye that pass the
+    scene's spheres at 0.9 to 0.9999999 of the radius from the centre, on 16
+    sides of each, cycling over the spheres."""
+    from raytracer_tpu_torch.core.v3 import V3
+
+    o, d, w = frame_rays(width, height, device)
+    eye = torch.stack([o.x[0, 0], o.y[0, 0], o.z[0, 0]]).double()
+    k = torch.arange(rows * width, device=device)
+    n_s = scene.spheres.radius.shape[0]
+    impact = torch.tensor([0.9, 0.99, 0.999, 0.9999, 0.99999, 0.999999, 0.9999999],
+                          dtype=torch.float64, device=device)
+    sph, imp = k % n_s, impact[(k // n_s) % len(impact)]
+    phi = ((k // (n_s * len(impact))) % 16).double() * (np.pi / 8)
+    c = scene.spheres.center.double()[sph]
+    r = scene.spheres.radius.double()[sph]
+    axis = c - eye
+    axis = axis / axis.norm(dim=-1, keepdim=True)
+    z = torch.tensor([0.0, 0.0, 1.0], dtype=torch.float64, device=device).expand_as(axis)
+    u = torch.linalg.cross(axis, z)
+    u = u / u.norm(dim=-1, keepdim=True)
+    v = torch.linalg.cross(axis, u)
+    aim = c + (r * imp)[:, None] * (torch.cos(phi)[:, None] * u + torch.sin(phi)[:, None] * v)
+    g = aim - eye
+    g = (g / g.norm(dim=-1, keepdim=True)).float()
+    planes = [p.clone() for p in d]
+    for j in range(3):
+        planes[j][:rows] = g[:, j].reshape(rows, width)
+    return o, V3(*planes), w
+
+
+def unit_error(res: torch.Tensor) -> list:
+    """Per level 1..depth, the largest ``| |d| - 1 |`` over the lanes alive
+    there (``res``: the residual planes, ``[depth, 7, ...]``)."""
+    out = []
+    for r in res:
+        alive = r[6] > 0
+        dev = (r[3:6].double().square().sum(dim=0).sqrt() - 1.0).abs()
+        out.append(float(dev[alive].max()) if bool(alive.any()) else 0.0)
+    return out
+
+
+def bounce_routes(device) -> dict:
+    """The changed kernels against their plain versions on frames with
+    grazing rays: ``trace_whole`` and ``trace_whole_bwd`` on grid-64 at d4,
+    ``ray_stats``, ``trace_level`` and ``trace_level_bwd`` on grid-1024 at
+    d4 (``check_trace_whole``, ``check_trace_whole_bwd``, ``check_levels``);
+    each route's largest ``| |d| - 1 |`` a level; the per-level loop around
+    ``closest_hit_soa`` (the shortlist-hit kernel) on the grid-1024 frame
+    against the chain's image and its own directions."""
+    from raytracer_tpu_torch.ops import cuda_fold, cuda_level
+    from raytracer_tpu_torch.ops.trace import closest_hit_soa, trace_soa
+
+    out = {}
+    whole, chain = BOUNCE_CASES
+    scene = make_scene(whole[1], device)
+    rays = grazing_rays(scene, whole[2], whole[3], device)
+    r = check_trace_whole(whole, device, rays=rays)
+    fwd = r.pop("forward")
+    r["unit_error"] = unit_error(fwd["levels"].res)
+    b = check_trace_whole_bwd(fwd, whole[0], device)
+    out["whole"] = {"fwd": {k: v for k, v in r.items() if k != "mismatch_lines"},
+                    "bwd": {k: v for k, v in b.items() if k != "exceptions"}}
+    out["whole"]["ok"] = r["ok"] and b["ok"] and max(r["unit_error"]) <= UNIT_TOL
+
+    scene = make_scene(chain[1], device)
+    o, d, w = grazing_rays(scene, chain[2], chain[3], device)
+    lv = check_levels(chain, device, rays=(o, d, w))
+    tables = cuda_fold.fused_tables(scene)
+    rgb, _, _, res = cuda_level.trace_levels(tables, o, d, w, chain[4], emit_res=True)
+    lv["unit_error"] = unit_error(res)
+    seen = []
+
+    def hit_fn(sc, oo, dd, active=None):
+        if active is not None:
+            seen.append(torch.stack([*dd, active.float()]))
+        return closest_hit_soa(sc, oo, dd, active=active)
+
+    with torch.no_grad():
+        reset_launches()
+        loop = trace_soa(scene, o, d, depth=chain[4], closest_hit_fn=hit_fn)
+        torch.cuda.synchronize()
+        launches = read_launches()
+    loop_err = unit_error(torch.stack([torch.cat([s[:3], s[:3], s[3:]]) for s in seen]))
+    equal = torch.stack([same_mask(a, b) for a, b in zip(loop, rgb)]).all(dim=0)
+    out["chain"] = lv
+    out["chain"]["ok"] = lv["ok"] and max(lv["unit_error"]) <= UNIT_TOL
+    out["loop"] = dict(equal_frac=float(equal.float().mean()), unit_error=loop_err,
+                       launches=launches, finite=all(bool(torch.isfinite(c).all()) for c in loop))
+    out["loop"]["ok"] = (out["loop"]["equal_frac"] >= 0.999 and max(loop_err) <= UNIT_TOL
+                         and out["loop"]["finite"])
+    out["planted"] = GRAZE_ROWS * chain[2]
+    return out
+
+
+def c5_frame(device) -> dict:
+    """``render`` of c5 (grid-1024, 3840x2160, depth 4, the demo camera)
+    without its tone map: its pixels that are not finite, its largest
+    channel, F1_PIXELS' values, and the frame's time."""
+    from raytracer_tpu_torch import render
+    from raytracer_tpu_torch.models import scenes
+
+    scene = scenes.grid_sphere_scene(1024, device=device)
+    camera = scenes.reference_demo_camera(device=device)
+    with torch.no_grad():
+        img = render(scene, camera, 3840, 2160, depth=4, tonemap=False, device=device)
+    torch.cuda.synchronize()
+    bad = ~torch.isfinite(img).all(dim=-1)
+    out = dict(nonfinite=int(bad.sum()), largest=float(img[~bad].max()),
+               pixels={f"{r},{c}": [float(x) for x in img[r, c]] for r, c in F1_PIXELS})
+    out["pixels_finite"] = all(np.isfinite(v).all() for v in out["pixels"].values())
+    return out
+
+
+def c5_fit(device, steps: int = 2, timed: int = 5) -> dict:
+    """``make_fit_step(3840, 2160, depth=4)`` on grid-1024 from each of
+    F1_SEEDS' start draws (the benchmark's ``inputs.start_draw``, truth +-
+    U(0.15)) toward the true scene's frame: ``steps`` steps each, their
+    losses, whether every loss and gradient is finite, the kernel launches
+    a step, the peak of the card's memory over the steps; then ``timed``
+    more steps of the last seed, their median host time to a synchronise."""
+    from benchmark import inputs
+    from raytracer_tpu_torch import Scene, make_fit_step, merge_params, render
+    from raytracer_tpu_torch.models import scenes
+
+    cfg = json.loads((Path(__file__).resolve().parent / "benchmark" / "configs"
+                      / "grid-1024.json").read_text())
+    arrays = inputs.scene_arrays(cfg)
+    truth = Scene.from_numpy(arrays, device=device)
+    camera = scenes.reference_demo_camera(device=device)
+    with torch.no_grad():
+        target = render(truth, camera, 3840, 2160, depth=4, device=device)
+    init_fn, step_fn = make_fit_step(3840, 2160, depth=4, device=device)
+    out = {}
+    for seed in F1_SEEDS:
+        start = inputs.start_draw(arrays, 0.15, inputs.seeded_generator(seed, device), device)
+        state = init_fn(merge_params(truth, start))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, finite, per_step = [], True, []
+        for _ in range(steps):
+            reset_launches()
+            state, loss = step_fn(state, truth, camera, target)
+            losses.append(float(loss))
+            per_step.append(read_launches())
+            finite &= all(bool(torch.isfinite(p.grad).all()) for p in state.params.values())
+            finite &= all(bool(torch.isfinite(p).all()) for p in state.params.values())
+        out[str(seed)] = dict(losses=losses, finite=finite and all(np.isfinite(losses)),
+                              launches=per_step,
+                              peak_bytes=int(torch.cuda.max_memory_allocated()))
+    times = []
+    for _ in range(timed):
+        a = time.perf_counter()
+        state, _ = step_fn(state, truth, camera, target)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - a) * 1e3)
+    out["step_ms"] = statistics.median(times)
+    return out
+
+
+def c5_kernel_times(device) -> dict:
+    """The changed kernels' device times a launch (``event_ms``): at c5's
+    full frame, ``trace_level`` a level and ``trace_level_bwd`` a level on
+    the chain's residuals and a seeded cotangent; ``trace_whole`` (with and
+    without its residual planes) and ``trace_whole_bwd`` on grid-768 and
+    sprint3 at 1920x1080 d3."""
+    from raytracer_tpu_torch.core.v3 import V3
+    from raytracer_tpu_torch.ops import cuda_fold, cuda_level
+
+    out = {}
+    scene = make_scene(("grid_sphere_scene", (1024,)), device)
+    tables = cuda_fold.fused_tables(scene)
+    o, d, w = frame_rays(3840, 2160, device)
+    km = level_kernels_ms(tables, o, d, w, 4)
+    out["c5_ray_stats_ms"], out["c5_trace_level_ms"] = km["stats_ms"], km["level_ms"]
+    _, t_k, i_k, res = cuda_level.trace_levels(tables, o, d, w, 4, emit_res=True)
+    levels = cuda_fold.Residuals(o, d, w, t_k, i_k, res)
+    attrs, ls = (a.detach() for a in cuda_fold.attribute_tables(scene))
+    gen = torch.Generator().manual_seed(7)
+    ct = V3(*(torch.randn(w.shape, generator=gen).to(device) for _ in range(3)))
+    sums = (torch.zeros(attrs.shape, dtype=torch.float64, device=device),
+            torch.zeros(ls.shape, dtype=torch.float64, device=device))
+    out["c5_trace_level_bwd_ms"], ct_next = [], None
+    for k in reversed(range(5)):
+        lo, ld, lw = levels.level(k)
+        cn = ct_next
+
+        def launch():
+            return cuda_level.trace_level_bwd(tables, attrs, ls, lo, ld, lw, t_k[k], i_k[k],
+                                              ct, cn, k == 4, sums)
+
+        out["c5_trace_level_bwd_ms"].insert(0, event_ms(launch, iters=10, warmup=2))
+        ct_next = launch()
+    for name, spec in (("grid768", ("grid_sphere_scene", (768,))),
+                       ("sprint3", ("sprint3_scene", ()))):
+        scene = make_scene(spec, device)
+        tables = cuda_fold.fused_tables(scene)
+        o, d, w = frame_rays(1920, 1080, device)
+        out[f"trace_whole_{name}_ms"] = event_ms(lambda: cuda_fold.trace_whole(tables, o, d, w, 3))
+        out[f"trace_whole_res_{name}_ms"] = event_ms(
+            lambda: cuda_fold.trace_whole(tables, o, d, w, 3, emit_res=True))
+        _, t_w, i_w, res = cuda_fold.trace_whole(tables, o, d, w, 3, emit_res=True)
+        lv = cuda_fold.Residuals(o, d, w, t_w, i_w, res)
+        attrs, ls = (a.detach() for a in cuda_fold.attribute_tables(scene))
+        ct = V3(*(torch.randn(w.shape, generator=gen).to(device) for _ in range(3)))
+        out[f"trace_whole_bwd_{name}_ms"] = event_ms(
+            lambda: cuda_fold.trace_whole_bwd(tables, attrs, ls, lv, ct, 3))
+    return out
+
+
+def bounce_only() -> int:
+    """``--bounce-only [--root DIR]``: the card's line, the build of the
+    hard path's kernels, ``bounce_routes``, c5's frame and fit (F1's repro,
+    ``c5_frame``, ``c5_fit``) and the changed kernels' times
+    (``c5_kernel_times``) on the package at DIR (default: beside this
+    script), then one JSON line of them all. Exits 1 if a kernel differs
+    from its plain version, a route leaves a direction off unit by more
+    than UNIT_TOL, or c5's frame or a fit step is not finite (a package
+    whose bounce is not the upstream's reflect fails the last two)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 1
+    import raytracer_tpu_torch
+    from raytracer_tpu_torch.ops import _build
+
+    root = str(Path(raytracer_tpu_torch.__file__).resolve().parents[1])
+    smi = card_line()
+    print(f"{smi} (package at {root})", flush=True)
+    t0 = time.perf_counter()
+    procs = ptxas_start(("trace_whole", "trace_whole_bwd", "trace_level", "trace_level_bwd"))
+    names = ("trace_whole", "trace_whole_bwd", "ray_stats", "trace_level", "trace_level_bwd",
+             "fold_shortlist")
+    _build.build(list(names))
+    print(f"build: {', '.join(names)} {time.perf_counter() - t0:.1f} s", flush=True)
+    result = {"root": root, "card": smi, "ptxas": [
+        {k: row.get(k) for k in ("kernel", "registers", "spill_stores", "spill_loads", "stack")}
+        for row in ptxas_finish(procs)]}
+    print(f"bounce ptxas: {json.dumps(result['ptxas'])}", flush=True)
+    # Each phase runs whatever the one before it found; one that raises (the
+    # old bounce's overflow reaches a check as NaN) is a failed check.
+    for key, fn in (("routes", bounce_routes), ("c5_frame", c5_frame), ("c5_fit", c5_fit),
+                    ("times", c5_kernel_times)):
+        t0 = time.perf_counter()
+        try:
+            result[key] = fn("cuda")
+        except Exception as e:  # reported, and fails the run below
+            result[key] = {"error": f"{type(e).__name__}: {e}"}
+        print(f"bounce {key} ({time.perf_counter() - t0:.1f} s): {json.dumps(result[key])}",
+              flush=True)
+    print(json.dumps({"bounce": result}), flush=True)
+    failed = [key for key in ("routes", "c5_frame", "c5_fit", "times") if "error" in result[key]]
+    if "error" not in result["routes"]:
+        failed += [k for k in ("whole", "chain", "loop") if not result["routes"][k]["ok"]]
+    frame = result["c5_frame"]
+    if "error" not in frame and (frame["nonfinite"] or not frame["pixels_finite"]):
+        failed.append("c5_frame")
+    if "error" not in result["c5_fit"]:
+        failed += [f"c5_fit {s}" for s in map(str, F1_SEEDS) if not result["c5_fit"][s]["finite"]]
+    if failed:
+        print(f"chip_smoke: --bounce-only: failed: {failed}", file=sys.stderr)
+        return 1
+    return 0
 
 
 def dist_only() -> int:
@@ -5084,6 +5385,8 @@ if __name__ == "__main__":
         sys.path.insert(0, argv[argv.index("--root") + 1])
     if "--dist-only" in argv:
         sys.exit(dist_only())
+    if "--bounce-only" in argv:
+        sys.exit(bounce_only())
     for mode in COMPARE_MODES:
         if f"--{mode}-compare" in argv:
             sys.exit(compare(mode, argv[argv.index(f"--{mode}-compare") + 1],

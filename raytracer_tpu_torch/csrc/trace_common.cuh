@@ -591,6 +591,51 @@ __device__ __forceinline__ HitRec winner_record(const Tab& T, float bt, int bi, 
   return HitRec{tt, hpx, hpy, hpz, hnx, hny, hnz};
 }
 
+// A 3-vector made unit, v * rsqrt(v . v), with what its adjoint needs; a
+// vector of squared length 1e-12 or less stays as it is. Op for op `_unit`
+// in ops/cuda_fold.py.
+struct Unit {
+  float x, y, z, n2, s;
+};
+
+__device__ __forceinline__ Unit unit3(float x, float y, float z) {
+  Unit u;
+  u.n2 = x * x + y * y + z * z;
+  u.s = rsqrtf(u.n2 > 1e-12f ? u.n2 : 1.0f);
+  u.x = x * u.s; u.y = y * u.s; u.z = z * u.s;
+  return u;
+}
+
+// Adjoint of unit3 at v for the cotangent cu of its result: sets cv to
+// cu s + 2 c_n2 v, c_n2 = (cu . v) (-s^3 / 2) where n2 > 1e-12 (else 0),
+// which is (cu - u (u . cu)) / |v|.
+__device__ __forceinline__ void unit3_bwd(const float v[3], const Unit& u, const float cu[3],
+                                          float cv[3]) {
+  float c_n2 = 0.0f;
+  if (u.n2 > 1e-12f) {
+    const float c_s = cu[0] * v[0] + cu[1] * v[1] + cu[2] * v[2];
+    c_n2 = c_s * (-0.5f * (u.s * u.s * u.s));
+  }
+#pragma unroll
+  for (int j = 0; j < 3; ++j) cv[j] = cu[j] * u.s + 2.0f * c_n2 * v[j];
+}
+
+// The mirror bounce at a hit, the upstream's reflect: the next ray leaves
+// the hit point by REFLECT_EPS along the unit normal n^ in the direction
+// d^ - 2 (d^ . n^) n^, with d^ and n^ the incoming direction and the
+// normal made unit (unit3). Op for op `_bounce` in ops/cuda_fold.py.
+__device__ __forceinline__ void bounce(float hpx, float hpy, float hpz, float hnx, float hny,
+                                       float hnz, Ray& r) {
+  const Unit dh = unit3(r.dx, r.dy, r.dz), nh = unit3(hnx, hny, hnz);
+  const float dn2 = 2.0f * (dh.x * nh.x + dh.y * nh.y + dh.z * nh.z);
+  r.ox = hpx + nh.x * REFLECT_EPS;
+  r.oy = hpy + nh.y * REFLECT_EPS;
+  r.oz = hpz + nh.z * REFLECT_EPS;
+  r.dx = dh.x - nh.x * dn2;
+  r.dy = dh.y - nh.y * dn2;
+  r.dz = dh.z - nh.z * dn2;
+}
+
 // One level after the fold found (bt, bi) for an alive lane: the winner
 // record, Blinn-Phong shading or the sky, the accumulator increment and the
 // mirror bounce. Updates the ray, the throughput and the accumulator in
@@ -656,13 +701,7 @@ __device__ __forceinline__ float shade_bounce(const Tab& T, float bt, int bi, bo
   accb = accb + lb * w;
 
   w = w * met;
-  float dn2 = 2.0f * (dx * hnx + dy * hny + dz * hnz);
-  r.ox = hpx + hnx * REFLECT_EPS;
-  r.oy = hpy + hny * REFLECT_EPS;
-  r.oz = hpz + hnz * REFLECT_EPS;
-  r.dx = dx - hnx * dn2;
-  r.dy = dy - hny * dn2;
-  r.dz = dz - hnz * dn2;
+  bounce(hpx, hpy, hpz, hnx, hny, hnz, r);
   return tt;
 }
 
@@ -1152,15 +1191,24 @@ __device__ __forceinline__ bool level_adjoint(
     // w_next = w * met
     c_w += cw * met;
     ca[10] += cw * w;
-    // o_next = hp + hn * eps; d_next = d - hn * dn2, dn2 = 2 (d . hn)
-    const float dn2 = 2.0f * (d[0] * hn[0] + d[1] * hn[1] + d[2] * hn[2]);
-    const float c_dn2 = -(cd[0] * hn[0] + cd[1] * hn[1] + cd[2] * hn[2]);
+    // o_next = hp + nh * eps; d_next = dh - nh * dn2, dn2 = 2 (dh . nh),
+    // dh = unit(d), nh = unit(hn); nh's cotangent starts c_hn, to which the
+    // shading's adds
+    const Unit du = unit3(d[0], d[1], d[2]), nu = unit3(hn[0], hn[1], hn[2]);
+    const float dh[3] = {du.x, du.y, du.z}, nh[3] = {nu.x, nu.y, nu.z};
+    const float dn2 = 2.0f * (dh[0] * nh[0] + dh[1] * nh[1] + dh[2] * nh[2]);
+    const float c_dn2 = -(cd[0] * nh[0] + cd[1] * nh[1] + cd[2] * nh[2]);
+    float c_dh[3], c_nh[3], c_db[3];
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
       c_hp[j] = co[j];
-      c_hn[j] = co[j] * REFLECT_EPS - cd[j] * dn2 + 2.0f * c_dn2 * d[j];
-      c_d[j] += cd[j] + 2.0f * c_dn2 * hn[j];
+      c_nh[j] = co[j] * REFLECT_EPS - cd[j] * dn2 + 2.0f * c_dn2 * dh[j];
+      c_dh[j] = cd[j] + 2.0f * c_dn2 * nh[j];
     }
+    unit3_bwd(d, du, c_dh, c_db);
+    unit3_bwd(hn, nu, c_nh, c_hn);
+#pragma unroll
+    for (int j = 0; j < 3; ++j) c_d[j] += c_db[j];
     // inc = hc * w, hc = local * (1 - met) (local on the last level)
     const float one_m = is_last ? 1.0f : 1.0f - met;
     c_w += car * (lr * one_m) + cag * (lg * one_m) + cab * (lb * one_m);

@@ -6,10 +6,12 @@ for it (``whole_grid``). For each level the thread folds the closest hit over
 walls, boxes and sphere chunks (ties broken on the global index; a warp
 folds a chunk that few of its lanes reach together), regathers the
 winner's attributes, shades it with Blinn-Phong point and sun lights (or the
-sky on a miss), accumulates, and reflects. ``trace_whole_reference`` is its
-plain PyTorch version: the same arithmetic, op for op, vectorised over
-primitives; ``whole_pair_reference`` mirrors the kernel's fold route by
-route in its lane layout, with the same outputs.
+sky on a miss), accumulates, and reflects (``_bounce``: the upstream's
+reflect, with the direction and the normal made unit).
+``trace_whole_reference`` is its plain PyTorch version: the same
+arithmetic, op for op, vectorised over primitives; ``whole_pair_reference``
+mirrors the kernel's fold route by route in its lane layout, with the same
+outputs.
 
 The scene reaches the kernel as one packed float32 table (``FusedTables``),
 copied into shared memory by each block (for most scenes the spheres as
@@ -710,6 +712,26 @@ def _sky(dz: torch.Tensor, sky: torch.Tensor) -> V3:
     ))
 
 
+def _unit(v: V3) -> V3:
+    """``v * rsqrt(v . v)``; a vector of squared length 1e-12 or less stays
+    as it is (a box's face normal where the ray runs along the face)."""
+    n2 = v.x * v.x + v.y * v.y + v.z * v.z
+    return v * torch.rsqrt(torch.where(n2 > 1e-12, n2, 1.0))
+
+
+def _bounce(hp: V3, hn: V3, d: V3) -> tuple[V3, V3]:
+    """The mirror bounce at a hit, the upstream's ``reflect``: the next ray
+    leaves ``hp`` by ``REFLECT_EPS`` along the unit normal n^ in the
+    direction ``d^ - 2 (d^ . n^) n^``, with d^ and n^ the incoming direction
+    and the normal made unit (``_unit``). Taking both as unit keeps |d| at 1
+    level after level: the record's float32 normal is off unit by up to
+    ~4e-5, and ``d - 2 (d . n) n`` grew |d| at each grazing hit until the
+    shading overflowed. Returns ``(o_next, d_next)``."""
+    dh, nh = _unit(d), _unit(hn)
+    dn2 = 2.0 * (dh.x * nh.x + dh.y * nh.y + dh.z * nh.z)
+    return hp + nh * REFLECT_EPS, dh - nh * dn2
+
+
 def _level_math(acc, o: V3, d: V3, w, t_sel, hit, is_s, is_w, is_b,
                 ls: torch.Tensor, counts: dict, is_last: bool):
     """One level's differentiable math at fixed selections: winner record
@@ -725,7 +747,6 @@ def _level_math(acc, o: V3, d: V3, w, t_sel, hit, is_s, is_w, is_b,
     """
     dx, dy, dz = d
     tt, hp, hn = _record_math(acc, t_sel, hit, is_s, is_w, is_b, o, d)
-    hnx, hny, hnz = hn
     met = acc[10]
     n_pt, n_sun = counts["n_pt"], counts["n_sun"]
     local = _shade(acc[6:], hp, hn, V3(-dx, -dy, -dz), ls, n_pt, n_sun)
@@ -735,9 +756,8 @@ def _level_math(acc, o: V3, d: V3, w, t_sel, hit, is_s, is_w, is_b,
     inc = V3.where(hit & (w > 0.0), hc, sk) * w
     t_out = torch.where(hit, tt, t_sel)
     w_next = w * torch.where(hit, met, 0.0)
-    o_next = V3.where(hit, hp + hn * REFLECT_EPS, o)
-    dn2 = 2.0 * (dx * hnx + dy * hny + dz * hnz)
-    d_next = V3.where(hit, d - hn * dn2, d)
+    o_b, d_b = _bounce(hp, hn, d)
+    o_next, d_next = V3.where(hit, o_b, o), V3.where(hit, d_b, d)
     return t_out, inc, w_next, o_next, d_next
 
 

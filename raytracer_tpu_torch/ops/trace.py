@@ -346,7 +346,7 @@ class _LevelTrace(torch.autograd.Function):
     backward: ``_WholeTrace`` for the per-level route. The forward chain
     keeps each level's input rays and throughput (its own outputs) and
     selections; the backward launches the per-level backward kernel for
-    k = depth..0."""
+    k = depth..0, inside the span ``rt.level_bwd``."""
 
     @staticmethod
     def forward(ctx, tables, depth, attrs, ls, ox, oy, oz, dx, dy, dz):
@@ -360,7 +360,8 @@ class _LevelTrace(torch.autograd.Function):
     def backward(ctx, ct_r, ct_g, ct_b):
         from raytracer_tpu_torch.ops import cuda_level
 
-        return _trace_backward(ctx, cuda_level.trace_levels_bwd, ct_r, ct_g, ct_b)
+        with profiler.span("rt.level_bwd"):
+            return _trace_backward(ctx, cuda_level.trace_levels_bwd, ct_r, ct_g, ct_b)
 
 
 def trace_soa(scene: Scene, o: V3, d: V3, *, depth: int = 3, fold: str = "auto",
@@ -416,7 +417,10 @@ def _trace_per_level(scene: Scene, o: V3, d: V3, depth: int, closest_hit_fn) -> 
     """The bounce loop one level at a time around ``closest_hit_fn``: the
     counterpart of the JAX ``trace_soa``'s loop. Level 0 passes no
     ``active``; later levels pass ``w > 0`` to a function that takes it, and
-    an inactive lane adds nothing whatever record it gets."""
+    an inactive lane adds nothing whatever record it gets. A hit bounces as
+    the kernels do (``cuda_fold._bounce``)."""
+    from raytracer_tpu_torch.ops import cuda_fold
+
     try:
         takes_active = "active" in inspect.signature(closest_hit_fn).parameters
     except (TypeError, ValueError):
@@ -437,9 +441,8 @@ def _trace_per_level(scene: Scene, o: V3, d: V3, depth: int, closest_hit_fn) -> 
         acc = acc + V3.where(take, hit_color, sky) * w
         if not is_last:
             w = w * torch.where(rec.hit, rec.metallic, 0.0)
-            o = V3.where(rec.hit, rec.point + rec.normal * REFLECT_EPS, o)
-            dn2 = 2.0 * d.dot(rec.normal)
-            d = V3.where(rec.hit, d - rec.normal * dn2, d)
+            o_b, d_b = cuda_fold._bounce(rec.point, rec.normal, d)
+            o, d = V3.where(rec.hit, o_b, o), V3.where(rec.hit, d_b, d)
             active = (w > 0.0).detach()
     return acc
 

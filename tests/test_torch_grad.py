@@ -15,13 +15,26 @@ to 0 on both sides:
 * lanes where the port's replay of the hit record gives another t than the
   JAX kernel saved (relative difference > 1e-6 at some level; the test
   allows at most 10% of the lanes to be set aside): the two differentiate
-  at different points.
+  at different points;
+* lanes where the replayed record's normal leaves unit by more than 1e-3 at
+  some level. The port bounces with the upstream's reflect, ``d^ - 2 (d^ .
+  n^) n^`` with the direction and the normal made unit; the JAX kernel
+  keeps ``d - 2 (d . n) n``, whose directions drift off unit after grazing
+  hits, so its residuals there hold normals off unit (up to 2% on grid-130)
+  and the two backwards differ by that much.
 
 On the rest, every scene leaf agrees to 1e-3 of the leaf's largest entry
 (the spheres' specular strength and exponent come closest to it: their
 gradients carry the exponent-50 lobe's float32 rounding), and the ray
 cotangents to rtol 1e-3 plus 1e-4 of the plane's largest entry
-on all but 0.1% of the lanes.
+on all but 0.1% of the lanes. Two components differ by design and are
+projected out of both sides first (``_tangential``): the port's bounce does
+not change when a direction or a normal is scaled, the JAX kernel's does.
+So the cotangent of each camera ray's direction is compared without its
+component along that (unit) direction, and the walls' normal leaf without
+its component along the normal. The spheres' leaves keep |d| and |n| at 1
+in exact arithmetic whatever their values, so their gradients are the same
+function on both sides and are compared whole.
 """
 
 import numpy as np
@@ -109,9 +122,33 @@ def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a))
 
 
+def _tangential(c: np.ndarray, n: np.ndarray, axis: int) -> np.ndarray:
+    """``c`` less its component along ``n`` (made unit), the vectors laid
+    along ``axis``, in float64."""
+    c, n = c.astype(np.float64), n.astype(np.float64)
+    n = n / np.linalg.norm(n, axis=axis, keepdims=True)
+    return c - n * np.sum(c * n, axis=axis, keepdims=True)
+
+
+def compared_leaf(sn, key, got, want):
+    """A leaf's cotangents as compared: the walls' normal without its
+    component along the normal (see the module docstring)."""
+    if key == "wall_normal":
+        return _tangential(got, sn[key], -1), _tangential(want, sn[key], -1)
+    return got, want
+
+
+def compared_rays(d0, got, want):
+    """The six ray-plane cotangents of each side as compared: the
+    direction's without its component along the camera ray ``d0`` (see the
+    module docstring)."""
+    return [[*side[:3], *_tangential(np.stack(side[3:]), d0, 0)] for side in (got, want)]
+
+
 def _excluded_lanes(sn, tables, attrs, rays, ws, ts, idxs, depth) -> np.ndarray:
-    """Lanes with a grazing sphere hit, or whose replayed hit t differs from
-    the JAX kernel's saved t, at some level (see the module docstring)."""
+    """Lanes with a grazing sphere hit, whose replayed hit t differs from
+    the JAX kernel's saved t, or whose replayed normal leaves unit by more
+    than 1e-3, at some level (see the module docstring)."""
     n_s = len(sn["sph_radius"])
     out = np.zeros((H, W), bool)
     for k in range(depth + 1):
@@ -127,11 +164,12 @@ def _excluded_lanes(sn, tables, attrs, rays, ws, ts, idxs, depth) -> np.ndarray:
         it, tt = _t(idxs[k]), _t(ts[k])
         hit = it >= 0
         acc = cuda_fold._gather(attrs.unbind(1), it, hit)
-        t_rep, _, _ = cuda_fold._record_math(
+        t_rep, _, hn = cuda_fold._record_math(
             acc, tt, hit, *cuda_fold._kinds(it, hit, tables.counts),
             V3(*(_t(c) for c in rays[k][:3])), V3(*(_t(c) for c in rays[k][3:])),
         )
-        out |= (alive & hit.numpy() & ((t_rep - tt).abs() > 1e-6 * tt.abs()).numpy())
+        off_unit = np.abs(np.sqrt(sum(c.double().numpy() ** 2 for c in hn)) - 1.0) > 1e-3
+        out |= alive & hit.numpy() & (((t_rep - tt).abs() > 1e-6 * tt.abs()).numpy() | off_unit)
     return out
 
 
@@ -177,6 +215,7 @@ def backward_pairs():
                 port_leaves=leaf_grads(scene, p_attrs, p_ls),
                 jax_rays=[np.asarray(c) for c in (*ct_o, *ct_d)],
                 port_rays=[c.numpy() for c in (*p_o, *p_d)],
+                d0=np.stack([np.asarray(c) for c in rays[0][3:]]),
             )
         return cache[case]
 
@@ -197,6 +236,7 @@ def test_scene_cotangents_match_jax_kernel(backward_pairs, case):
             keep = metallic_ok[key.split("_")[0]]
             got, want = got[keep], want[keep]
         assert np.isfinite(got).all(), key
+        got, want = compared_leaf(r["sn"], key, got, want)
         scale = float(np.abs(want).max()) if want.size else 0.0
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-3 * scale + 1e-12, err_msg=key)
 
@@ -204,8 +244,8 @@ def test_scene_cotangents_match_jax_kernel(backward_pairs, case):
 @pytest.mark.parametrize("case", list(CASES))
 def test_ray_cotangents_match_jax_kernel(backward_pairs, case):
     r = backward_pairs(case)
-    for name, got, want in zip(("o.x", "o.y", "o.z", "d.x", "d.y", "d.z"),
-                               r["port_rays"], r["jax_rays"]):
+    port, jax = compared_rays(r["d0"], r["port_rays"], r["jax_rays"])
+    for name, got, want in zip(("o.x", "o.y", "o.z", "d.x", "d.y", "d.z"), port, jax):
         assert np.isfinite(got).all(), name
         off = ~np.isclose(got, want, rtol=1e-3, atol=1e-4 * np.abs(want).max())
         assert off.mean() <= 1e-3, f"{name}: {off.sum()} lanes off"

@@ -11,7 +11,9 @@ bars are those of tests/test_torch_trace.py: indices on >= 99.9% of alive
 lanes with every differing lane first differing at a grazing sphere hit; t
 per level on the JAX chain's own input rays, to rtol 1e-5 plus the float32
 cancellation slack of the full-form sphere recompute; rgb to 5e-4 on all but
-0.1% of pixels, every pixel outside it on a path that drifted apart. The
+0.1% of pixels, every pixel outside it on a path that drifted apart, with the
+pixels whose JAX direction leaves unit by more than 1e-5 set aside (the
+port's bounce is the upstream's unit reflect, the JAX chain's is not). The
 JAX chain gates a listed chunk for its whole (32 or 64, 128) tile and the
 port per lane; both are exact for unit directions.
 
@@ -37,6 +39,7 @@ from raytracer_tpu_torch.core.v3 import V3
 from raytracer_tpu_torch.models import scenes as tscenes
 from raytracer_tpu_torch.ops import cuda_fold, cuda_level
 from raytracer_tpu_torch.ops.trace import MISS_T, raygen_tile
+from test_torch_trace import bent_lanes
 
 torch.set_num_threads(1)
 
@@ -168,10 +171,14 @@ def test_chain_t_matches_jax_per_level(chain):
 
 
 def test_chain_rgb_matches_jax(chain):
+    """The chain's rgb against the JAX chain's, as test_torch_trace.py holds
+    the whole trace's: lanes whose JAX direction leaves unit by more than
+    1e-5 at some level take another bounce there by design (``bent_lanes``)."""
     r = chain
     jt, pt = r["j_t"].astype(np.float64), r["p_t"]
     drift = r["j_alive"] & ((r["j_i"] != r["p_i"]) | (np.abs(pt - jt) > 1e-5 * np.abs(jt)))
     off = ~np.isclose(r["p_rgb"], r["j_rgb"], rtol=5e-4, atol=5e-4).all(axis=0)
+    off &= ~bent_lanes(r)
     assert off.mean() <= 1e-3, f"{off.sum()} pixels outside 5e-4"
     assert not (off & ~drift.any(axis=0)).any()
 

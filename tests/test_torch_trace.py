@@ -22,6 +22,13 @@ that difference and no more:
   every pixel outside it has a path that drifted apart (another selection,
   or t off by more than 1e-5, at some level), as the grid's
   sphere-to-sphere bounces magnify one level's rounding into the next.
+  Lanes whose JAX direction leaves unit by more than 1e-5 at some level
+  (``bent_lanes``) are set aside from both counts: the port bounces with the
+  upstream's reflect, ``d^ - 2 (d^ . n^) n^`` with the direction and the
+  normal made unit, the JAX kernel with ``d - 2 (d . n) n``, whose
+  direction drifts off unit after grazing hits (the record's float32
+  normal is off unit by up to ~4e-5). A drift of 1e-5 moves the
+  exponent-50 specular lobe by ~2.5e-4 relative, half the rgb bar.
 """
 
 import numpy as np
@@ -170,12 +177,20 @@ def test_t_matches_jax_kernel(traced, case):
         )
 
 
+def bent_lanes(r) -> np.ndarray:
+    """Pixels whose JAX direction leaves unit by more than 1e-5 at some
+    alive level (see the module docstring)."""
+    norms = np.stack([np.sqrt(np.sum(ray[3:] ** 2, axis=0)) for ray in r["j_rays"]])
+    return (r["j_alive"] & (np.abs(norms - 1.0) > 1e-5)).any(axis=0)
+
+
 @pytest.mark.parametrize("case", list(CASES))
 def test_rgb_matches_jax_kernel(traced, case):
     r = traced(case)
     jt, pt = r["j_t"].astype(np.float64), r["p_t"]
     drift = r["j_alive"] & ((r["j_i"] != r["p_i"]) | (np.abs(pt - jt) > 1e-5 * np.abs(jt)))
     off = ~np.isclose(r["p_rgb"], r["j_rgb"], rtol=5e-4, atol=5e-4).all(axis=0)
+    off &= ~bent_lanes(r)
     assert off.mean() <= 1e-3, f"{off.sum()} pixels outside 5e-4"
     unexplained = off & ~drift.any(axis=0)
     assert not unexplained.any(), f"pixels {np.argwhere(unexplained)[:5]}"
